@@ -1,0 +1,60 @@
+"""Fused SDF query (counterpart of ``points2surf_tpu/infer/query.py``):
+patch extraction, model forward and post-processing for a batch of query
+points against a device-resident cloud, returning model-space signed
+distances. This is the reconstruction inner loop.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from points2surf_tpu_torch.models import losses as L
+from points2surf_tpu_torch.ops.patches import PatchConfig, extract_patches
+
+
+def drain_batched_results(pending, n_total: int) -> np.ndarray:
+    """Concatenate (B,) device results and fetch them as one host array."""
+    if not pending:
+        return np.empty(0, np.float32)
+    return torch.cat(pending)[:n_total].cpu().numpy()
+
+
+def postprocess_sdf(pred: torch.Tensor, radius: torch.Tensor, outputs,
+                    fixed_radius: bool) -> torch.Tensor:
+    """Raw predictions (B, len(outputs)) -> (B,) model-space signed
+    distances (tanh^2 magnitude times sign, scaled by the patch radius)."""
+    dist = mag = sign = None
+    for dim, o in enumerate(outputs):
+        if o == "imp_surf":
+            d = L.post_process_distance(pred[:, dim])
+            dist = d if fixed_radius else d * radius
+        elif o == "imp_surf_magnitude":
+            m = L.post_process_magnitude(pred[:, dim])
+            mag = m if fixed_radius else m * radius
+        elif o == "imp_surf_sign":
+            sign = L.post_process_sign(pred[:, dim])
+        else:
+            raise ValueError(f"unknown output: {o}")
+    return dist if dist is not None else mag * sign
+
+
+def make_sdf_query_fn(model: torch.nn.Module, outputs,
+                      patch_cfg: PatchConfig, fixed_radius: bool,
+                      coherent: bool = True):
+    """Returns ``fn(points, queries, n_valid, rng, small_cloud=False)`` ->
+    (B,) signed distances. ``rng`` is a ``torch.Generator`` on the points'
+    device or the batch's ``SubsampleDraws``. Puts ``model`` in eval mode.
+    """
+    outputs = tuple(outputs)
+    model.eval()
+
+    @torch.inference_mode()
+    def query(points, queries, n_valid, rng, small_cloud: bool = False):
+        batch = extract_patches(points, queries, n_valid, rng, cfg=patch_cfg,
+                                small_cloud=small_cloud, coherent=coherent)
+        pred = model(batch)
+        return postprocess_sdf(pred, batch["patch_radius_ms"], outputs,
+                               fixed_radius)
+
+    return query

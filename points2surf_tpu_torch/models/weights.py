@@ -1,0 +1,70 @@
+"""Weights bridge: JAX/flax parameter trees and reference ``.pth`` files.
+
+``state_dict_from_flax`` mirrors ``export_state_dict`` of
+``points2surf_tpu/models/import_torch.py`` with numpy alone (no jax, no
+import of the JAX package): flax Dense kernels (in, out) become Conv1d
+weights (out, in, 1) for ``conv*`` layers and Linear weights (out, in)
+otherwise; ``norm/{scale, bias}`` and ``batch_stats`` ``{mean, var}`` become
+BatchNorm ``weight/bias/running_mean/running_var``; the ``trunk`` level of
+STN/QSTN modules is dropped.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: dict, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _torch_key(path) -> str:
+    # path ends (layer, kind, leaf); 'trunk' levels do not exist in torch
+    return ".".join(p for p in path[:-2] if p != "trunk")
+
+
+def state_dict_from_flax(params: dict, batch_stats: dict | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """Nested dicts of numpy arrays (flax ``params``, ``batch_stats``) -> a
+    reference-layout torch ``state_dict``."""
+    state: dict[str, np.ndarray] = {}
+    for path, val in _flatten(params):
+        val = np.asarray(val)
+        layer, kind, leaf = path[-3], path[-2], path[-1]
+        base = _torch_key(path)
+        if kind == "norm" and leaf in ("scale", "bias"):
+            state[base + (".weight" if leaf == "scale" else ".bias")] = val
+            state.setdefault(base + ".num_batches_tracked",
+                             np.asarray(0, np.int64))
+        elif kind == "linear" and leaf == "kernel":
+            w = val.T[:, :, None] if layer.startswith("conv") else val.T
+            state[base + ".weight"] = w
+        elif kind == "linear" and leaf == "bias":
+            state[base + ".bias"] = val
+        else:
+            raise ValueError(f"unexpected param path: {path}")
+    for path, val in _flatten(batch_stats or {}):
+        base = _torch_key(path)
+        leaf = path[-1]
+        if leaf not in ("mean", "var"):
+            raise ValueError(f"unknown batch_stats leaf: {path}")
+        state[base + (".running_mean" if leaf == "mean"
+                      else ".running_var")] = np.asarray(val)
+        state.setdefault(base + ".num_batches_tracked",
+                         np.asarray(0, np.int64))
+    return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+
+
+def load_reference_pth(model: nn.Module, path: str) -> nn.Module:
+    """Load a reference ``.pth`` checkpoint into ``model`` (strict). Keys of
+    ``DataParallel``-saved files lose their ``module.`` prefix."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = {k.removeprefix("module."): v for k, v in state.items()}
+    model.load_state_dict(state, strict=True)
+    return model
