@@ -2,17 +2,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's SDF query path (``points2surf_tpu_torch``) at the full
-width of ``bench.py``'s model (shared QSTN, net 1024, 300 patch points,
-1000 sub-sample points, candidate decimation 4) with seeded random weights:
+Drives the port's two paths (``points2surf_tpu_torch``) at the full width
+of ``bench.py``'s model (shared QSTN, net 1024, 300 patch points, 1000
+sub-sample points) with seeded random weights: the SDF query (candidate
+decimation 4) and the fused train step (decimation 8, SGD with momentum):
 
-1. device: card name and power limit, torch/CUDA versions, kernel build;
+1. device: card name and power limit, torch/CUDA versions, the kernels'
+   build (one ``nvcc`` per source, in parallel);
 2. each hand-written kernel against its plain PyTorch version on the card,
-   at the shapes of its call sites on the main path;
-3. the whole slice on the GPU against the same slice on the CPU, on the
+   at the shapes of its call sites (``chain_pool`` on the query path,
+   ``pooled_tail`` on the train path, and ``mlp_maxpool``, which no path
+   calls);
+3. the query slice on the GPU against the same slice on the CPU, on the
    bundled cloud, with the same weights and injected random draws;
-4. throughput of the main path at batch 4096 on the grid-256 near-surface
-   queries, with its stage split and the kernels' launch counts.
+4. query throughput at batch 4096 on the grid-256 near-surface queries,
+   with its stage split and ``chain_pool``'s launch count;
+5. one fused train step on the GPU against the same step on the CPU in
+   float64 at batch 64: same weights, momentum buffers, random draws and
+   rotations;
+6. train throughput at batch 1000, with its stage split and
+   ``pooled_tail``'s launch count.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -42,6 +51,14 @@ OUTPUTS = ("imp_surf_magnitude", "imp_surf_sign")
 # chain call sites of the bench model's forward: (Cin, n points, count)
 CHAIN_SITES = ((3, 1300, 1), (64, 1000, 2), (64, 300, 2))
 NET = 1024
+# conv3 tails of one train forward (Cin 128 -> NET): (n points, count)
+TAIL_SITES = ((1300, 1), (1000, 2), (300, 2))
+TRAIN_BATCH = 1000
+TRAIN_WARMUP = 3
+TRAIN_TIMED = 10
+TRAIN_SPLIT = 3
+SLICE_TRAIN_BATCH = 64
+KERNEL_SOURCES = ("chain_pool", "pooled_tail")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -74,17 +91,35 @@ def phase_device(torch):
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"capability {torch.cuda.get_device_capability(0)}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from points2surf_tpu_torch.ops.kernels import build
     from points2surf_tpu_torch.ops.kernels import chain_pool as cp
+    from points2surf_tpu_torch.ops.kernels import pooled_tail as pt
 
     t0 = time.perf_counter()
-    path, log = cp.build_library()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        built = list(ex.map(build.build_library, KERNEL_SOURCES))
     cp._library()
-    print(f"[device] chain_pool build+load {time.perf_counter() - t0:.3f} s "
-          f"-> {os.path.relpath(path, ROOT)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[device] ptxas: {line.strip()}")
+    pt._library()
+    print(f"[device] {len(built)} kernel sources built in parallel + loaded "
+          f"in {time.perf_counter() - t0:.3f} s")
+    for name, (path, log) in zip(KERNEL_SOURCES, built):
+        print(f"[device] {name} -> {os.path.relpath(path, ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[device] ptxas {name}: {line.strip()}")
     return card
+
+
+def _close(got, want, what: str):
+    """(max abs err, elements outside rtol 1e-4 / atol 1e-4 * max|want|)."""
+    err = (got.double() - want.double()).abs()
+    atol = 1e-4 * float(want.abs().max())
+    bad = int((err > atol + 1e-4 * want.double().abs()).sum())
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
+                                   f"{tuple(want.shape)}")
+    return float(err.max()), bad
 
 
 def _random_chain(torch, gen, cin: int, device):
@@ -143,6 +178,90 @@ def phase_kernels(torch, device):
     print(f"[kernel] five chains of one B=64 forward: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_tail_kernels(torch, device):
+    """pooled_tail at the five conv3-tail shapes of a batch-1000 train
+    forward (and a ragged case with ties), mlp_maxpool at two shapes."""
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        mlp_maxpool, mlp_maxpool_reference)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions, pooled_tail_reductions_reference)
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    names = ("cmax", "amax", "cmin", "amin", "rsum", "rsq")
+    tail = {"max_abs_err": 0.0}
+    times = {}
+    for b, n in [(TRAIN_BATCH, n) for n, _ in TAIL_SITES] + [(37, 129)]:
+        # post-relu activations, as conv3 receives them
+        x = torch.relu(torch.randn((b, n, 128), generator=gen)).to(device)
+        if b == 37:
+            x[:, 100:] = x[:, :1]  # tied rows: the first index must win
+        w = (torch.randn((128, NET), generator=gen) / 128 ** 0.5).to(device)
+        bias = (torch.randn((NET,), generator=gen) * 0.1).to(device)
+        got = pooled_tail_reductions(x, w, bias)
+        want = pooled_tail_reductions_reference(x, w, bias)
+        torch.cuda.synchronize()
+        bad, err = 0, 0.0
+        for name, g, r in zip(names, got, want):
+            if g.dtype == torch.int32:
+                check(bool(((g >= 0) & (g < n)).all()),
+                      f"pooled_tail {name} out of range")
+                continue
+            e, nb = _close(g, r, f"pooled_tail {name}")
+            err, bad = max(err, e), bad + nb
+        del want
+        # the arg contract: the value at the kernel's index is the pool
+        c = torch.matmul(x, w) + bias
+        for v, a in ((got[0], got[1]), (got[2], got[3])):
+            at = torch.gather(c, 1, a.long()[:, None, :])[:, 0]
+            e, nb = _close(at, v, "pooled_tail value at arg")
+            err, bad = max(err, e), bad + nb
+        del c
+        if b == 37:
+            check(bool((got[1] < 100).all()) and bool((got[3] < 100).all()),
+                  "pooled_tail: a tie did not keep the first index")
+        tail["max_abs_err"] = max(tail["max_abs_err"], err)
+        msg = (f"[kernel] pooled_tail B={b} n={n} 128->{NET}: max_abs_err "
+               f"{err:.3e} (rtol 1e-4, atol 1e-4*max|ref|), {bad} outside")
+        if b == TRAIN_BATCH:
+            t_k = _events_ms(torch, lambda: pooled_tail_reductions(
+                x, w, bias), 10)
+            t_p = _events_ms(torch, lambda: pooled_tail_reductions_reference(
+                x, w, bias), 5)
+            times[n] = (t_k, t_p)
+            flop = 2.0 * b * n * 128 * NET
+            msg += (f"; kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s),"
+                    f" plain {t_p:.4f} ms")
+        print(msg)
+        check(bad == 0, f"pooled_tail disagrees with its plain version: "
+                        f"B={b} n={n}")
+        del x, got
+    tail["ms"] = sum(cnt * times[n][0] for n, cnt in TAIL_SITES)
+    tail["plain_ms"] = sum(cnt * times[n][1] for n, cnt in TAIL_SITES)
+    print(f"[kernel] five conv3 tails of one B={TRAIN_BATCH} train forward: "
+          f"kernel {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms")
+
+    mlp = {"max_abs_err": 0.0}
+    for b, n, cin, cout in ((64, 300, 128, NET), (16, 256, 128, 512)):
+        x = torch.randn((b, n, cin), generator=gen).to(device)
+        w = (torch.randn((cin, cout), generator=gen) * 0.1).to(device)
+        c = torch.randn((cout,), generator=gen).to(device)
+        got = mlp_maxpool(x, w, c)
+        want = mlp_maxpool_reference(x, w, c)
+        torch.cuda.synchronize()
+        err, bad = _close(got, want, "mlp_maxpool")
+        mlp["max_abs_err"] = max(mlp["max_abs_err"], err)
+        t_k = _events_ms(torch, lambda: mlp_maxpool(x, w, c), 20)
+        t_p = _events_ms(torch, lambda: mlp_maxpool_reference(x, w, c), 20)
+        if b == 64:
+            mlp["ms"], mlp["plain_ms"] = t_k, t_p
+        print(f"[kernel] mlp_maxpool B={b} n={n} {cin}->{cout}: max_abs_err "
+              f"{err:.3e}, {bad} outside; kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms")
+        check(bad == 0, f"mlp_maxpool disagrees with its plain version: "
+                        f"B={b} n={n}")
+    return tail, mlp
 
 
 def _bench_model(torch, device):
@@ -293,6 +412,254 @@ def phase_throughput(torch, device, cfg, model, pts_pad, n, queries):
     return launches
 
 
+def _train_cfg():
+    from points2surf_tpu_torch.ops.patches import PatchConfig
+
+    # bench.py's training extraction: full candidate depth (decimation 8)
+    return PatchConfig(points_per_patch=300, patch_radius=0.0,
+                       sub_sample_size=1000)
+
+
+def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
+    """One fused train step on the GPU against the same step on the CPU in
+    float64, from the same weights, momentum buffers, draws and rotations.
+
+    The CPU runs the same code in float64 (the plain versions take any
+    float type), which makes it the exact reference: in float32 the CPU
+    step is the less accurate one on this path (on an H100 host, in the
+    global encoder's first layers: GPU vs CPU float32 5.8e-3 of max|g|,
+    GPU vs CPU float64 1.7e-5, CPU float32 vs float64 5.8e-3).
+
+    Two implementations can also order near-ties differently, and the step
+    has two places where order is data: the patch and sub-sample rows
+    (neighbours at nearly equal distances), and the max pools' arg decisions
+    (a flipped arg routes one row's gradient elsewhere). So the extractions
+    are compared as point sets, and the CPU step then trains on the GPU's
+    batch; the GPU step records the kernel's arg indices, and the CPU step's
+    plain tail uses them after checking that each is an arg of the CPU's own
+    values (the value at it is the CPU's max or min within rtol 1e-4 / atol
+    1e-4 * max|c|).
+
+    The last layer of every spatial transformer starts at zero (their output
+    is then exactly the identity, as STNs are commonly initialized): at a
+    random init each transformer multiplies the rounding differences between
+    the two devices about tenfold (3e-5 of max|x| at the encoder tails,
+    against 1e-6 with identity transformers), and the gradients then differ
+    by up to ~10%. Gradients still flow through every transformer."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.models.pointnet import _STNTrunk
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions_reference)
+    from points2surf_tpu_torch.ops.patches import TrainDraws, draw_train
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    cfg = _train_cfg()
+    b = SLICE_TRAIN_BATCH
+    rs = np.random.RandomState(SEED + 3)
+    q = torch.from_numpy(queries[:b])
+    gt = torch.from_numpy((rs.randn(b) * 0.05).astype(np.float32))
+    draws = draw_train(torch.Generator().manual_seed(SEED + 3), b,
+                       pts_pad.shape[0], cfg)
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, _STNTrunk):
+                mod.fc3.weight.zero_()
+                mod.fc3.bias.zero_()
+    names = [k for k, _ in model.named_parameters()]
+    momentum = {k: torch.from_numpy((rs.randn(*p.shape) * 1e-3).astype(
+        np.float32)) for k, p in model.named_parameters()}
+    real = pn.pooled_tail_reductions
+    recorded = []
+    stats = {"args": 0, "own_arg_differs": 0, "bad_args": 0}
+
+    def record(x, w, bias):
+        out = real(x, w, bias)
+        recorded.append((out[1].cpu(), out[3].cpu()))
+        return out
+
+    def replay(x, w, bias):
+        cmax, amax, cmin, amin, rsum, rsq = (
+            pooled_tail_reductions_reference(x, w, bias))
+        gmax, gmin = recorded.pop(0)
+        c = torch.matmul(x, w) + bias
+        tol = 1e-4 * float(c.abs().max())
+        pooled = []
+        for own, val, g in ((amax, cmax, gmax), (amin, cmin, gmin)):
+            at = torch.gather(c, 1, g.long()[:, None, :])[:, 0]
+            stats["args"] += g.numel()
+            stats["own_arg_differs"] += int((own != g).sum())
+            stats["bad_args"] += int(((at - val).abs()
+                                      > tol + 1e-4 * val.abs()).sum())
+            pooled.append(at)
+        return pooled[0], gmax, pooled[1], gmin, rsum, rsq
+
+    res, batches = [], []
+    f64 = torch.float64
+    for dev, dtype, hook in ((device, torch.float32, record),
+                             (torch.device("cpu"), f64, replay)):
+        m = copy.deepcopy(model).to(device=dev, dtype=dtype)
+        steps = make_train_step(m, OUTPUTS, lr=0.01, momentum=0.9,
+                                patch_cfg=cfg)
+        steps.load_sgd_state(momentum, None)
+        d = TrainDraws(draws.offset.to(dev), draws.logu.to(dev, dtype),
+                       draws.rot.to(dev, dtype))
+        pn.pooled_tail_reductions = hook
+        try:
+            t0 = time.perf_counter()
+            batch = steps.extract_train_batch(
+                torch.from_numpy(pts_pad).to(dev, dtype), q.to(dev, dtype),
+                n, gt.to(dev, dtype), d)
+            batches.append({k: v.cpu() for k, v in batch.items()})
+            if dtype == f64:  # the GPU's rows, in the GPU's order
+                batch = {k: v.to(f64) if v.is_floating_point() else v
+                         for k, v in batches[0].items()}
+            losses, metrics = steps.train_step(batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            pn.pooled_tail_reductions = real
+        print(f"[train-slice] {dev.type} {str(dtype)[6:]} step at batch {b}: "
+              f"{dt:.2f} s")
+        named = dict(m.named_parameters())
+        res.append({
+            "losses": losses.cpu().to(f64),
+            "metrics": {k: v.cpu().to(f64) for k, v in metrics.items()},
+            "grads": {k: named[k].grad.cpu().to(f64) for k in names},
+            "state": {k: v.cpu().to(f64) for k, v in m.state_dict().items()},
+        })
+        del m, steps
+    check(not recorded, "the CPU step ran fewer pooled tails than the GPU")
+    for k in ("patch_pts_ps", "pts_sub_sample_ms"):
+        e = float((_sorted_points(torch, batches[0][k].to(f64))
+                   - _sorted_points(torch, batches[1][k])).abs().max())
+        print(f"[train-slice] extraction {k} {tuple(batches[1][k].shape)} "
+              f"GPU vs CPU as point sets: max_abs_err {e:.3e} (atol 1e-5)")
+        check(e <= 1e-5, f"train extraction {k} differs between GPU and CPU")
+    for k in ("patch_radius_ms", "imp_surf_query_point_ms"):
+        e = float((batches[0][k].to(f64) - batches[1][k]).abs().max())
+        print(f"[train-slice] extraction {k} GPU vs CPU max_abs_err {e:.3e}")
+        check(e <= 1e-5, f"train extraction {k} differs between GPU and CPU")
+    g, c = res
+    print(f"[train-slice] arg decisions {stats['args']}: the GPU's index is "
+          f"not the CPU's own first arg in {stats['own_arg_differs']} "
+          f"(near-ties), and not an arg of the CPU values in "
+          f"{stats['bad_args']}")
+    check(stats["bad_args"] == 0, "a GPU arg index is not an arg on the CPU")
+    check(bool(torch.isfinite(g["losses"]).all()), "non-finite train loss")
+    err = float(((g["losses"] - c["losses"]).abs()
+                 / c["losses"].abs()).max())
+    print(f"[train-slice] losses GPU {g['losses'].tolist()} CPU "
+          f"{c['losses'].tolist()}: max rel err {err:.3e} (rtol 1e-4)")
+    check(err <= 1e-4, "train losses differ between GPU and CPU")
+    for k, v in c["metrics"].items():
+        w = g["metrics"][k]
+        same = bool(torch.isclose(w, v, rtol=1e-4, atol=0.0, equal_nan=True))
+        print(f"[train-slice] metric {k}: GPU {w.item():.6f} CPU "
+              f"{v.item():.6f}")
+        check(same, f"train metric {k} differs between GPU and CPU")
+    g_max = max(float(t.abs().max()) for t in c["grads"].values())
+    worst, bad_tensors = (0.0, ""), []
+    for k in names:
+        gg, cg = g["grads"][k], c["grads"][k]
+        scale = float(cg.abs().max())
+        if scale < 1e-6 * g_max:  # zero in exact arithmetic
+            if float(gg.abs().max()) >= 1e-6 * g_max:
+                bad_tensors.append(k)
+            continue
+        e = (gg - cg).abs()
+        worst = max(worst, (float(e.max()) / scale, k))
+        if bool((e > 1e-3 * scale + 1e-3 * cg.abs()).any()):
+            bad_tensors.append(k)
+    print(f"[train-slice] gradients of {len(names)} tensors: worst max|err| "
+          f"/ max|g| {worst[0]:.3e} ({worst[1]}); {len(bad_tensors)} outside "
+          f"rtol 1e-3 / atol 1e-3*max|g| {bad_tensors[:5]}")
+    check(not bad_tensors, "gradients differ between GPU and CPU")
+    bad_state, worst = [], 0.0
+    for k, v in c["state"].items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        e = (g["state"][k] - v).abs()
+        worst = max(worst, float(e.max()))
+        if bool((e > 1e-6 + 1e-4 * v.abs()).any()):
+            bad_state.append(k)
+    print(f"[train-slice] updated parameters and running statistics: max abs "
+          f"err {worst:.3e}; {len(bad_state)} tensors outside rtol 1e-4 / "
+          f"atol 1e-6 {bad_state[:5]}")
+    check(not bad_state, "updated state differs between GPU and CPU")
+
+
+def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
+    from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    model = copy.deepcopy(model).to(device)
+    steps = make_train_step(model, OUTPUTS, lr=0.01, momentum=0.9,
+                            patch_cfg=_train_cfg())
+    pts_t = torch.from_numpy(pts_pad).to(device)
+    q_all = torch.from_numpy(queries).to(device)
+    gt = torch.from_numpy((np.random.RandomState(SEED).randn(TRAIN_BATCH)
+                           * 0.05).astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def batch_queries(i):
+        s = (i * TRAIN_BATCH) % (len(queries) - TRAIN_BATCH)
+        return q_all[s:s + TRAIN_BATCH]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pooled_tail_reductions.launches = 0
+    chain_pool.launches = 0
+    for i in range(TRAIN_WARMUP):
+        losses, _ = steps.train_step_fused(pts_t, batch_queries(i), n, gt,
+                                           gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
+        losses, _ = steps.train_step_fused(pts_t, batch_queries(i), n, gt,
+                                           gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(losses).all()), "non-finite train loss")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+          for _ in range(TRAIN_SPLIT)]
+    for j in range(TRAIN_SPLIT):
+        q = batch_queries(TRAIN_WARMUP + TRAIN_TIMED + j)
+        ev[j][0].record()
+        batch = steps.extract_train_batch(pts_t, q, n, gt, gen)
+        ev[j][1].record()
+        loss_list, _ = steps.forward_loss(batch)
+        ev[j][2].record()
+        steps.backward(loss_list)
+        ev[j][3].record()
+        steps.update()
+        ev[j][4].record()
+    torch.cuda.synchronize()
+    launches = pooled_tail_reductions.launches
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_SPLIT
+    split = [sum(e[s].elapsed_time(e[s + 1]) for e in ev) / TRAIN_SPLIT
+             for s in range(4)]
+    pps = TRAIN_BATCH * TRAIN_TIMED / dt
+    print(f"[train] {pps:.1f} train patches/s at batch {TRAIN_BATCH}, f32 "
+          f"({TRAIN_TIMED} timed steps, {dt / TRAIN_TIMED * 1e3:.2f} ms/step "
+          f"host clock); last losses {losses.tolist()}")
+    print(f"[train] stage split per step (CUDA events, mean of "
+          f"{TRAIN_SPLIT}): extraction {split[0]:.2f} ms, forward+loss "
+          f"{split[1]:.2f} ms, backward {split[2]:.2f} ms, optimizer "
+          f"{split[3]:.2f} ms")
+    print(f"[train] pooled_tail launches {launches} over {n_steps} steps "
+          f"(expected {5 * n_steps}); chain_pool launches "
+          f"{chain_pool.launches} (train mode runs no eval chain)")
+    print(f"[train] max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(launches == 5 * n_steps,
+          "pooled_tail was not launched five times per train step")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -314,6 +681,7 @@ def main() -> int:
 
     card = phase_device(torch)
     kern = phase_kernels(torch, device)
+    tail, mlp = phase_tail_kernels(torch, device)
 
     from points2surf_tpu_torch.ops.patches import PatchConfig
     from points2surf_tpu_torch.ops.voxel import grid_query_points
@@ -333,9 +701,21 @@ def main() -> int:
     print(f"[slice] model parameters "
           f"{sum(p.numel() for p in model.parameters())}")
     phase_slice(torch, np, device, cfg, model, pts_pad, n, queries)
+    from points2surf_tpu_torch.ops.kernels.chain_pool import mlp_maxpool
+
+    # mlp_maxpool is counted over the two paths' runs (it has no caller)
+    mlp_maxpool.launches = 0
     launches = phase_throughput(torch, device, cfg, model, pts_pad, n,
                                 queries)
-    print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
+    mlp_launches = mlp_maxpool.launches
+    phase_train_slice(torch, np, device, model, pts_pad, n, queries)
+    mlp_maxpool.launches = 0
+    tail_launches = phase_train_throughput(torch, np, device, model, pts_pad,
+                                           n, queries)
+    mlp_launches += mlp_maxpool.launches
+    print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
+          f"mlp_maxpool launches on the two paths: {mlp_launches} "
+          "(no caller in either package)")
     print(json.dumps({"kernels": [{
         "name": "chain_pool",
         "route": "cuda",
@@ -345,6 +725,24 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+    }, {
+        "name": "pooled_tail",
+        "route": "cuda",
+        "source": "points2surf_tpu_torch/csrc/pooled_tail.cu",
+        "replaces": "points2surf_tpu/ops/pallas/train_tail.py:138",
+        "launches": tail_launches,
+        "max_abs_err": tail["max_abs_err"],
+        "ms": tail["ms"],
+        "plain_ms": tail["plain_ms"],
+    }, {
+        "name": "mlp_maxpool",
+        "route": "cuda",
+        "source": "points2surf_tpu_torch/csrc/chain_pool.cu",
+        "replaces": "points2surf_tpu/ops/pallas/encoder_tail.py:52",
+        "launches": mlp_launches,
+        "max_abs_err": mlp["max_abs_err"],
+        "ms": mlp["ms"],
+        "plain_ms": mlp["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,7 @@
-"""The PointsToSurf dual-branch SDF regressor, eval mode
-(counterpart of ``points2surf_tpu/models/p2s.py``).
+"""The PointsToSurf dual-branch SDF regressor
+(counterpart of ``points2surf_tpu/models/p2s.py``). ``model.train()`` runs
+the train-mode graph (batch statistics, see ``models/pointnet.py``),
+``model.eval()`` the eval graph.
 
 Variants (mutually exclusive, reference points_to_surf_model.py:250-267):
   * vanilla: two encoders; the global branch's QSTN rotation is also

@@ -1,4 +1,5 @@
-"""Weights bridge: JAX/flax parameter trees and reference ``.pth`` files.
+"""Weights bridge: JAX/flax parameter trees, optax SGD state and reference
+``.pth`` files.
 
 ``state_dict_from_flax`` mirrors ``export_state_dict`` of
 ``points2surf_tpu/models/import_torch.py`` with numpy alone (no jax, no
@@ -6,10 +7,14 @@ import of the JAX package): flax Dense kernels (in, out) become Conv1d
 weights (out, in, 1) for ``conv*`` layers and Linear weights (out, in)
 otherwise; ``norm/{scale, bias}`` and ``batch_stats`` ``{mean, var}`` become
 BatchNorm ``weight/bias/running_mean/running_var``; the ``trunk`` level of
-STN/QSTN modules is dropped.
+STN/QSTN modules is dropped. ``sgd_state_from_checkpoint`` does the same for
+the momentum trace of an ``optax.sgd`` state as the JAX package's
+checkpoints store it.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -59,6 +64,37 @@ def state_dict_from_flax(params: dict, batch_stats: dict | None = None
         state.setdefault(base + ".num_batches_tracked",
                          np.asarray(0, np.int64))
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+
+
+def _unflatten(items) -> dict:
+    tree: dict = {}
+    for path, val in items:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val
+    return tree
+
+
+def sgd_state_from_checkpoint(flat, prefix: str = "['opt_state']"
+                              ) -> tuple[dict[str, torch.Tensor], int | None]:
+    """The ``optax.sgd(..., momentum=...)`` state in a JAX checkpoint -> the
+    per-parameter momentum buffers under the reference ``state_dict`` names,
+    and the step count (None when the learning rate was a constant).
+
+    ``flat`` maps the tree paths that ``points2surf_tpu/train/checkpoint.py``
+    writes (``"['opt_state'][0].trace['feat_global']['conv1']['linear']
+    ['kernel']"``, ``"['opt_state'][1].count"``) to numpy arrays, as
+    ``np.load`` of its ``.npz`` returns them."""
+    trace = prefix + "[0].trace"
+    items = [(tuple(re.findall(r"\['([^']*)'\]", key[len(trace):])), val)
+             for key, val in flat.items() if key.startswith(trace)]
+    if not items:
+        raise ValueError(f"no SGD momentum trace under {trace}")
+    buffers = {k: v for k, v in state_dict_from_flax(_unflatten(items)).items()
+               if not k.endswith(".num_batches_tracked")}
+    count = flat.get(prefix + "[1].count")
+    return buffers, None if count is None else int(np.asarray(count))
 
 
 def load_reference_pth(model: nn.Module, path: str) -> nn.Module:

@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
+``nvcc`` for sm_90a into a shared library, at its first use, under the
+package's ``build/`` directory (keyed by a hash of the source and the
+headers of ``csrc/``), and loaded with ``ctypes``. Nothing is built when a
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _source_tag(source: Path) -> str:
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` for sm_90a. Returns (library path, compiler
+    log); an existing build of the same sources is reused. Safe to call for
+    several sources at once from threads (one ``nvcc`` each)."""
+    source = CSRC / f"{name}.cu"
+    out_dir = BUILD_DIR / f"{name}-{_source_tag(source)}"
+    lib = out_dir / f"libp2s_{name}.so"
+    log = out_dir / "build.log"
+    if lib.exists():
+        return lib, log.read_text() if log.exists() else ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+           "-o", tmp, str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {source.name} "
+                           f"({proc.returncode}):\n{text}")
+    log.write_text(text)
+    os.replace(tmp, lib)
+    return lib, text
+
+
+VP, CI = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def load_library(name: str, entry_points: tuple) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; ``entry_points`` is a
+    tuple of (function name, argtypes) pairs. Every entry returns an int
+    (a ``cudaError_t``)."""
+    path, _ = build_library(name)
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in entry_points:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = CI
+    return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

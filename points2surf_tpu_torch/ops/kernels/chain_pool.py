@@ -6,27 +6,18 @@ Counterpart of ``points2surf_tpu/ops/pallas/chain_kernel.py`` (``chain_pool``,
     pool_n(L3(relu(L2(relu(L1(x))))))     L_i(h) = (h @ W_i) * a_i + c_i
 
 (relu after L3 only with ``relu_last``), pooled by max or sum over the point
-axis, in fp32. A CPU tensor takes the plain PyTorch version; a CUDA tensor
-launches the kernel, built from the repository's source with ``nvcc`` at its
-first use, or raises.
+axis, in fp32. Also the one-layer case ``mlp_maxpool`` (counterpart of
+``points2surf_tpu/ops/pallas/encoder_tail.py``): ``max_n(x @ W) + c``. A CPU
+tensor takes the plain PyTorch version; a CUDA tensor launches the kernel,
+built from the repository's source with ``nvcc`` at its first use, or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-
 import torch
 
-_PKG = Path(__file__).resolve().parents[2]
-_SOURCE = _PKG / "csrc" / "chain_pool.cu"
-_BUILD_DIR = _PKG / "build"
+from points2surf_tpu_torch.ops.kernels.build import (
+    CI, VP, check_launch, load_library)
 
 # widths the CUDA kernel is compiled for (conv1/conv2 of every trunk)
 KERNEL_C1 = 64
@@ -54,9 +45,9 @@ def fold_conv_bn(cbias, scale, bbias, mean, var, eps: float = 1e-5):
     return a, c
 
 
-def _check(x: torch.Tensor, layers) -> None:
-    if len(layers) != 3:
-        raise ValueError(f"chain_pool takes three (W, a, c) layers, got "
+def _check(x: torch.Tensor, layers, n_layers: int = 3) -> None:
+    if len(layers) != n_layers:
+        raise ValueError(f"expected {n_layers} (W, a, c) layers, got "
                          f"{len(layers)}")
     if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 (B, n, Cin) tensor, "
@@ -105,9 +96,8 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
             f"{KERNEL_C1}/{KERNEL_C2}, got {cin}/{w1.shape[1]}/{w2.shape[1]}")
     cout = w3.shape[1]
     out = torch.empty((b, cout), device=x.device, dtype=torch.float32)
-    lib = _library()
     with torch.cuda.device(x.device):
-        rc = lib.p2s_chain_pool(
+        rc = _library().p2s_chain_pool(
             x.data_ptr(), b, n, cin,
             w1.data_ptr(), a1.data_ptr(), c1.data_ptr(), w1.shape[1],
             w2.data_ptr(), a2.data_ptr(), c2.data_ptr(), w2.shape[1],
@@ -115,8 +105,7 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
             int(sym_op == "max"), int(relu_last), out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"chain_pool kernel launch failed: CUDA error {rc}")
+    check_launch("chain_pool", rc)
     chain_pool.launches += 1
     return out
 
@@ -124,50 +113,46 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
 chain_pool.launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+def mlp_maxpool_reference(x: torch.Tensor, w: torch.Tensor,
+                          c: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mlp_maxpool`."""
+    return torch.amax(torch.matmul(x, w), dim=1) + c
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile ``csrc/chain_pool.cu`` for sm_90a into the package's build
-    directory, keyed by a hash of the source. Returns (path, compiler log);
-    an existing build of the same source is reused."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out_dir = _BUILD_DIR / tag
-    lib = out_dir / "libp2s_chain_pool.so"
-    log = out_dir / "build.log"
-    if lib.exists():
-        return lib, log.read_text() if log.exists() else ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
-    log.write_text(text)
-    os.replace(tmp, lib)
-    return lib, text
+def mlp_maxpool(x: torch.Tensor, w: torch.Tensor,
+                c: torch.Tensor) -> torch.Tensor:
+    """``max_n(x @ w) + c``: one pointwise layer, max pool, bias after the
+    pool (the folded-BN encoder tail). x (B, n, Cin) float32, w (Cin, Cout),
+    c (Cout,) -> (B, Cout) float32. On CUDA the one-layer entry of the
+    chain kernel takes Cin <= 128 and any n."""
+    _check(x, ((w, c, c),), n_layers=1)  # no scale a: c stands in
+    if x.device.type == "cpu":
+        return mlp_maxpool_reference(x, w, c)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_maxpool has no kernel for {x.device}")
+    b, n, cin = x.shape
+    if cin > KERNEL_C2:
+        raise ValueError(f"CUDA mlp_maxpool takes Cin <= {KERNEL_C2}, "
+                         f"got {cin}")
+    cout = w.shape[1]
+    out = torch.empty((b, cout), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        rc = _library().p2s_mlp_maxpool(
+            x.data_ptr(), b, n, cin, w.data_ptr(), c.data_ptr(), cout,
+            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch("mlp_maxpool", rc)
+    mlp_maxpool.launches += 1
+    return out
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.p2s_chain_pool
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, ci, vp, vp, vp, ci, vp, vp, vp, ci,
-                   vp, vp, vp, ci, ci, ci, vp, vp]
-    fn.restype = ci
-    return lib
+mlp_maxpool.launches = 0
+
+_ENTRY_POINTS = (
+    ("p2s_chain_pool", (VP, CI, CI, CI, VP, VP, VP, CI, VP, VP, VP, CI,
+                        VP, VP, VP, CI, CI, CI, VP, VP)),
+    ("p2s_mlp_maxpool", (VP, CI, CI, CI, VP, VP, CI, VP, VP)),
+)
+
+
+def _library():
+    return load_library("chain_pool", _ENTRY_POINTS)

@@ -1,23 +1,27 @@
-"""Eval-mode patch extraction (counterpart of ``points2surf_tpu/ops/patches.py``).
+"""Patch extraction (counterpart of ``points2surf_tpu/ops/patches.py``).
 
 For a batch of query points against a device-resident cloud: kNN patch
-selection, pad-with-query, adaptive radius, patch-space normalization and
-the distance-weighted global sub-sample.
+selection, pad-with-query, adaptive radius, patch-space normalization, the
+distance-weighted global sub-sample and, in training, the rotation
+augmentation.
 
-Selection: coherent batches are Morton-sorted and cut into spatial tiles;
-each tile takes the M cloud points nearest its centroid as shared
+Selection: coherent eval batches are Morton-sorted and cut into spatial
+tiles; each tile takes the M cloud points nearest its centroid as shared
 candidates, every query runs an exact top-k over them, and a per-tile
 certificate (``d_k(q) + |q - centroid| <= R_M``) proves the result equals the
 full-cloud kNN. If any tile fails, the whole batch is selected again against
-the full cloud. Selection is always exact ``torch.topk``.
+the full cloud. Training batches (spread random patches) go straight to the
+full-cloud selection. Selection is always exact ``torch.topk`` (the JAX
+package selects training patches with ``approx_max_k``).
 
 Randomness: the sub-sample's draws (the decimation offset and one
 log-uniform per candidate) are made by :func:`draw_subsample` and passed in
-as a :class:`SubsampleDraws`, so a caller can inject the same numbers on two
-devices or frameworks.
+as a :class:`SubsampleDraws`; a training batch adds one uniform rotation per
+row (:class:`TrainDraws`, :func:`draw_train`). A caller can so inject the
+same numbers on two devices or frameworks.
 
-Train mode (rotation augmentation), ball mode (``patch_radius > 0``) and the
-uniform with-replacement sub-sample come with later slices and raise here.
+Ball mode (``patch_radius > 0``) and the uniform with-replacement
+sub-sample come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -59,6 +63,15 @@ class SubsampleDraws:
     logu: torch.Tensor  # (B, n_cand) float32 log-uniforms in (-inf, 0)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainDraws(SubsampleDraws):
+    """Random numbers of one training batch: the sub-sample's, and one
+    rotation per row for the augmentation (reference
+    data_loader.py:381-393)."""
+
+    rot: torch.Tensor  # (B, 3, 3) float32 rotations
+
+
 def _morton_codes(q: torch.Tensor) -> torch.Tensor:
     """30-bit Morton codes of points in (-1, 1)^3 (10 bits/axis)."""
     g = torch.clamp(((q + 1.0) * 0.5 * 1024.0).to(torch.int32), 0, 1023)
@@ -98,6 +111,14 @@ def draw_subsample(generator: torch.Generator, b: int, n: int,
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand((b, n_cand), generator=generator, device=device)
     return SubsampleDraws(offset, torch.log(u * (1.0 - tiny) + tiny))
+
+
+def draw_train(generator: torch.Generator, b: int, n: int, cfg: PatchConfig,
+               small_cloud: bool = False) -> TrainDraws:
+    """Draw a training batch's randomness on ``generator``'s device."""
+    sub = draw_subsample(generator, b, n, cfg, small_cloud)
+    rot = geometry.random_rotation(generator, (b,), generator.device)
+    return TrainDraws(sub.offset, sub.logu, rot)
 
 
 def _tile_select(points, queries, n_valid, k, tile, m):
@@ -191,8 +212,10 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
       queries: (B, 3) float32 query points on the same device.
       n_valid: valid-row count (int or 0-d integer tensor).
       rng: a ``torch.Generator`` on the points' device, or the batch's
-        :class:`SubsampleDraws`.
+        :class:`SubsampleDraws` (:class:`TrainDraws` when ``train``).
       cfg: :class:`PatchConfig` (kNN mode).
+      train: full-cloud selection and a random rotation of each row's
+        patch, sub-sample and query (the reference's augmentation).
       small_cloud: True when n_valid < sub_sample_size (shuffle + zero pad).
       coherent: False when the queries are spatially spread, which skips
         the tile attempt.
@@ -202,8 +225,6 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
     imp_surf_query_point_ms (B, 3), imp_surf_query_point_ps (B, 3),
     patch_pts_ids (B, k).
     """
-    if train:
-        raise NotImplementedError("train-mode extraction is not ported yet")
     if not cfg.knn_mode:
         raise NotImplementedError("ball-mode extraction is not ported yet")
     b = queries.shape[0]
@@ -212,9 +233,14 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
     sub_n = cfg.sub_sample_size
     if sub_n > 0 and cfg.uniform_subsample and not small_cloud:
         raise NotImplementedError("uniform sub-sampling is not ported yet")
+    gen = rng if isinstance(rng, torch.Generator) else None
+    if train and gen is None and not isinstance(rng, TrainDraws):
+        raise TypeError("train-mode extraction takes a Generator or "
+                        "TrainDraws (with the rotations)")
 
     tile_m = min(cfg.tile_candidates, n)
-    use_tiles = not cfg.exact and coherent and n > 2 * tile_m and b >= 64
+    use_tiles = (not cfg.exact and not train and coherent and n > 2 * tile_m
+                 and b >= 64)
     if use_tiles:
         tile = min(cfg.tile_queries, b)
         pad_rows = (-b) % tile
@@ -240,10 +266,11 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
 
     if sub_n > 0:
         draws = rng
-        if isinstance(rng, torch.Generator):
+        if gen is not None:
+            sub_gen = gen
             if cfg.fixed_subsample:
-                rng = torch.Generator(device=points.device).manual_seed(42)
-            draws = draw_subsample(rng, b, n, cfg, small_cloud)
+                sub_gen = torch.Generator(device=points.device).manual_seed(42)
+            draws = draw_subsample(sub_gen, b, n, cfg, small_cloud)
         sub_ids, sub_pad = _gumbel_subsample(
             points, queries, n_valid, sub_n, draws, cfg, small_cloud,
             uniform_shuffle=small_cloud)
@@ -251,11 +278,20 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
     else:
         sub = torch.zeros((b, 0, 3), dtype=torch.float32, device=points.device)
 
+    query_ms = queries
+    if train:
+        rot = (rng.rot if gen is None
+               else geometry.random_rotation(gen, (b,), points.device))
+        sub = geometry.transform_points(sub, rot)
+        patch_pts_ps = geometry.transform_points(patch_pts_ps, rot)
+        query_ms = torch.einsum("bij,bj->bi", rot, queries)
+
     return {
         "patch_pts_ps": patch_pts_ps,
         "patch_radius_ms": radius,
         "pts_sub_sample_ms": sub,
-        "imp_surf_query_point_ms": queries,
+        "imp_surf_query_point_ms": query_ms,
+        # (q - q) / r == 0, and stays 0 under the rotation
         "imp_surf_query_point_ps": torch.zeros_like(queries),
         "patch_pts_ids": ids,
     }

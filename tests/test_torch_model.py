@@ -16,6 +16,7 @@ from points2surf_tpu_torch.models.weights import state_dict_from_flax
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
+pytest.importorskip("flax")  # the JAX package's models need it
 from points2surf_tpu.models.import_torch import export_state_dict  # noqa: E402
 from points2surf_tpu.models.p2s import PointsToSurfModel as JaxP2S  # noqa: E402
 
@@ -110,12 +111,18 @@ def test_load_reference_pth_strips_data_parallel_prefix(rng, tmp_path):
 
 
 def test_train_mode_and_multiscale_raise():
+    """Train mode runs (batch statistics, running statistics updated, a
+    gradient for every parameter); the multi-scale branch still raises."""
     from points2surf_tpu_torch.models.pointnet import PointNetFeat
 
     model = TorchP2S(net_size_max=NET)  # modules start in train mode
     batch = {k: torch.from_numpy(v)
-             for k, v in _batch(np.random.RandomState(0), 2).items()}
-    with pytest.raises(NotImplementedError):
-        model(batch)
+             for k, v in _batch(np.random.RandomState(0), 4).items()}
+    before = model.feat_local.bn1.running_var.clone()
+    pred = model(batch)
+    assert pred.shape == (4, 2) and bool(torch.isfinite(pred).all())
+    assert not torch.equal(model.feat_local.bn1.running_var, before)
+    pred.square().sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
     with pytest.raises(NotImplementedError):
         PointNetFeat(net_size_max=NET, num_scales=2)

@@ -29,7 +29,9 @@ KW = dict(points_per_patch=32, sub_sample_size=64, tile_candidates=1024,
 def test_port_imports_no_jax():
     code = ("import sys, points2surf_tpu_torch.infer.query, "
             "points2surf_tpu_torch.models.weights, "
-            "points2surf_tpu_torch.ops.voxel; "
+            "points2surf_tpu_torch.ops.voxel, "
+            "points2surf_tpu_torch.train.trainer, "
+            "points2surf_tpu_torch.ops.kernels.pooled_tail; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'points2surf_tpu.')) or "
             "m == 'points2surf_tpu']; print(bad); sys.exit(bool(bad))")
