@@ -11,8 +11,8 @@ decimation 4) and the fused train step (decimation 8, SGD with momentum):
    build (one ``nvcc`` per source, in parallel);
 2. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes of its call sites (``chain_pool`` on the query path,
-   ``pooled_tail`` on the train path, and ``mlp_maxpool``, which no path
-   calls);
+   ``pooled_tail`` on the train path), and ``mlp_maxpool``, which no path
+   calls, at four encoder-tail shapes (``MLP_SHAPES``);
 3. the query slice on the GPU against the same slice on the CPU, on the
    bundled cloud, with the same weights and injected random draws;
 4. query throughput at batch 4096 on the grid-256 near-surface queries,
@@ -58,7 +58,12 @@ TRAIN_WARMUP = 3
 TRAIN_TIMED = 10
 TRAIN_SPLIT = 3
 SLICE_TRAIN_BATCH = 64
-KERNEL_SOURCES = ("chain_pool", "pooled_tail")
+KERNEL_SOURCES = ("chain_pool", "pooled_tail", "mlp_maxpool")
+# mlp_maxpool shapes (B, n, Cin, Cout): the JAX package's test, the local
+# encoder tail at batch 64, the local and global encoder tails at the train
+# batch; the JSON line reports the second
+MLP_SHAPES = ((16, 256, 128, 512), (64, 300, 128, NET),
+              (TRAIN_BATCH, 300, 128, NET), (TRAIN_BATCH, 1000, 128, NET))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -95,6 +100,7 @@ def phase_device(torch):
 
     from points2surf_tpu_torch.ops.kernels import build
     from points2surf_tpu_torch.ops.kernels import chain_pool as cp
+    from points2surf_tpu_torch.ops.kernels import mlp_maxpool as mm
     from points2surf_tpu_torch.ops.kernels import pooled_tail as pt
 
     t0 = time.perf_counter()
@@ -102,6 +108,7 @@ def phase_device(torch):
         built = list(ex.map(build.build_library, KERNEL_SOURCES))
     cp._library()
     pt._library()
+    mm._library()
     print(f"[device] {len(built)} kernel sources built in parallel + loaded "
           f"in {time.perf_counter() - t0:.3f} s")
     for name, (path, log) in zip(KERNEL_SOURCES, built):
@@ -182,8 +189,8 @@ def phase_kernels(torch, device):
 
 def phase_tail_kernels(torch, device):
     """pooled_tail at the five conv3-tail shapes of a batch-1000 train
-    forward (and a ragged case with ties), mlp_maxpool at two shapes."""
-    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+    forward (and a ragged case with ties), mlp_maxpool at MLP_SHAPES."""
+    from points2surf_tpu_torch.ops.kernels.mlp_maxpool import (
         mlp_maxpool, mlp_maxpool_reference)
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
         pooled_tail_reductions, pooled_tail_reductions_reference)
@@ -243,24 +250,32 @@ def phase_tail_kernels(torch, device):
           f"kernel {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms")
 
     mlp = {"max_abs_err": 0.0}
-    for b, n, cin, cout in ((64, 300, 128, NET), (16, 256, 128, 512)):
-        x = torch.randn((b, n, cin), generator=gen).to(device)
-        w = (torch.randn((cin, cout), generator=gen) * 0.1).to(device)
-        c = torch.randn((cout,), generator=gen).to(device)
+    dgen = torch.Generator(device=device).manual_seed(SEED + 4)
+    for b, n, cin, cout in MLP_SHAPES:
+        x = torch.randn((b, n, cin), generator=dgen, device=device)
+        w = torch.randn((cin, cout), generator=dgen, device=device) * 0.1
+        c = torch.randn((cout,), generator=dgen, device=device)
         got = mlp_maxpool(x, w, c)
         want = mlp_maxpool_reference(x, w, c)
         torch.cuda.synchronize()
         err, bad = _close(got, want, "mlp_maxpool")
+        del want
         mlp["max_abs_err"] = max(mlp["max_abs_err"], err)
-        t_k = _events_ms(torch, lambda: mlp_maxpool(x, w, c), 20)
-        t_p = _events_ms(torch, lambda: mlp_maxpool_reference(x, w, c), 20)
-        if b == 64:
+        # the small shapes take tens of microseconds per call
+        iters = 200 if b * n < 100_000 else 5
+        t_k = _events_ms(torch, lambda: mlp_maxpool(x, w, c), iters)
+        t_p = _events_ms(torch, lambda: mlp_maxpool_reference(x, w, c),
+                         iters)
+        if (b, n) == MLP_SHAPES[1][:2]:
             mlp["ms"], mlp["plain_ms"] = t_k, t_p
+        flop = 2.0 * b * n * cin * cout
         print(f"[kernel] mlp_maxpool B={b} n={n} {cin}->{cout}: max_abs_err "
-              f"{err:.3e}, {bad} outside; kernel {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms")
+              f"{err:.3e} (rtol 1e-4, atol 1e-4*max|ref|), {bad} outside; "
+              f"kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
+              f"{t_p:.4f} ms ({flop / t_p / 1e9:.1f} TFLOP/s)")
         check(bad == 0, f"mlp_maxpool disagrees with its plain version: "
                         f"B={b} n={n}")
+        del x, got
     return tail, mlp
 
 
@@ -701,7 +716,7 @@ def main() -> int:
     print(f"[slice] model parameters "
           f"{sum(p.numel() for p in model.parameters())}")
     phase_slice(torch, np, device, cfg, model, pts_pad, n, queries)
-    from points2surf_tpu_torch.ops.kernels.chain_pool import mlp_maxpool
+    from points2surf_tpu_torch.ops.kernels.mlp_maxpool import mlp_maxpool
 
     # mlp_maxpool is counted over the two paths' runs (it has no caller)
     mlp_maxpool.launches = 0
@@ -737,7 +752,7 @@ def main() -> int:
     }, {
         "name": "mlp_maxpool",
         "route": "cuda",
-        "source": "points2surf_tpu_torch/csrc/chain_pool.cu",
+        "source": "points2surf_tpu_torch/csrc/mlp_maxpool.cu",
         "replaces": "points2surf_tpu/ops/pallas/encoder_tail.py:52",
         "launches": mlp_launches,
         "max_abs_err": mlp["max_abs_err"],

@@ -24,15 +24,8 @@
 // shared memory; activations are stored transposed ([channel][point], row
 // stride 68 floats) so a thread reads its rows as float4 broadcasts and the
 // epilogue stores hit distinct banks. wgmma/TMA and lower-precision
-// operands are later work.
-//
-// One-layer entry (p2s_mlp_maxpool): max_n(x @ W) + c, replacing the TPU
-// kernel points2surf_tpu/ops/pallas/encoder_tail.py (_tail_kernel, reached
-// through mlp_maxpool). The same kernel, instantiated with kOneLayer: the x
-// chunk (Cin <= 128) goes straight into the layer-3 operand buffer, layers
-// 1-2 are skipped, the layer-3 affine is a = 1, c = 0, and c is added after
-// the pool. The three-layer instantiation and the shared-memory layout are
-// unchanged.
+// operands are later work here; csrc/mlp_maxpool.cu (the one-layer encoder
+// tail) is the first kernel of the port built on them.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -91,7 +84,6 @@ __device__ __forceinline__ void store_hidden(float* __restrict__ Ht,
   }
 }
 
-template <bool kOneLayer>
 __global__ void __launch_bounds__(THREADS, 1)
 chain_pool_kernel(const float* __restrict__ x, int n, int cin,
                   const float* __restrict__ w1, const float* __restrict__ a1,
@@ -118,35 +110,24 @@ chain_pool_kernel(const float* __restrict__ x, int n, int cin,
   const int col0 = blockIdx.y * TC;
   const int tid = threadIdx.x;
 
-  // depth of the layer-3 product: conv2's width, or Cin in the one-layer case
-  const int k3 = kOneLayer ? cin : C2;
-  if constexpr (!kOneLayer) {
-    for (int i = tid; i < C1 * C2; i += THREADS) W2s[i] = w2[i];
-  }
-  for (int i = tid; i < k3 * TC; i += THREADS) {
+  for (int i = tid; i < C1 * C2; i += THREADS) W2s[i] = w2[i];
+  for (int i = tid; i < C2 * TC; i += THREADS) {
     const int k = i / TC;
     const int col = col0 + (i - k * TC);
     W3s[i] = col < cout ? w3[(size_t)k * cout + col] : 0.f;
   }
-  if constexpr (!kOneLayer) {
-    for (int i = tid; i < C1; i += THREADS) {
-      a1s[i] = a1[i];
-      b1s[i] = c1[i];
-    }
-    for (int i = tid; i < C2; i += THREADS) {
-      a2s[i] = a2[i];
-      b2s[i] = c2[i];
-    }
+  for (int i = tid; i < C1; i += THREADS) {
+    a1s[i] = a1[i];
+    b1s[i] = c1[i];
+  }
+  for (int i = tid; i < C2; i += THREADS) {
+    a2s[i] = a2[i];
+    b2s[i] = c2[i];
   }
   for (int i = tid; i < TC; i += THREADS) {
     const int col = col0 + i;
-    if constexpr (kOneLayer) {
-      a3s[i] = 1.f;  // c is added after the pool
-      b3s[i] = 0.f;
-    } else {
-      a3s[i] = col < cout ? a3[col] : 0.f;
-      b3s[i] = col < cout ? c3[col] : 0.f;
-    }
+    a3s[i] = col < cout ? a3[col] : 0.f;
+    b3s[i] = col < cout ? c3[col] : 0.f;
   }
 
   // thread tiles: layer 1 64x64 (4x4 each), layer 2 64x128 (4x8),
@@ -166,28 +147,23 @@ chain_pool_kernel(const float* __restrict__ x, int n, int cin,
       const int ci = i - r * cin;
       xt[ci * NPS + r] = (p0 + r < n) ? xb[(size_t)p0 * cin + i] : 0.f;
     }
-    if constexpr (!kOneLayer) {
-      for (int i = tid; i < cin * C1; i += THREADS) W1s[i] = w1[i];
+    for (int i = tid; i < cin * C1; i += THREADS) W1s[i] = w1[i];
+    __syncthreads();
+    {
+      float acc[4][4];
+      tile_product<C1, 4, 4>(xt, W1s, cin, rg12, cg12, acc);
+      store_hidden<C1, 4, 4>(h1t, a1s, b1s, rg12, cg12, acc);
     }
     __syncthreads();
-    if constexpr (!kOneLayer) {
-      {
-        float acc[4][4];
-        tile_product<C1, 4, 4>(xt, W1s, cin, rg12, cg12, acc);
-        store_hidden<C1, 4, 4>(h1t, a1s, b1s, rg12, cg12, acc);
-      }
-      __syncthreads();
-      {
-        float acc[4][8];
-        tile_product<C2, 4, 8>(h1t, W2s, C1, rg12, cg12, acc);
-        store_hidden<C2, 4, 8>(h2t, a2s, b2s, rg12, cg12, acc);
-      }
-      __syncthreads();
-    }
     {
-      // one-layer case: h2t is xt, the x chunk itself
+      float acc[4][8];
+      tile_product<C2, 4, 8>(h1t, W2s, C1, rg12, cg12, acc);
+      store_hidden<C2, 4, 8>(h2t, a2s, b2s, rg12, cg12, acc);
+    }
+    __syncthreads();
+    {
       float acc[8][8];
-      tile_product<TC, 8, 8>(h2t, W3s, k3, rg3, cg3, acc);
+      tile_product<TC, 8, 8>(h2t, W3s, C2, rg3, cg3, acc);
       const int rows_left = n - p0 - rg3 * 8;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -219,7 +195,6 @@ chain_pool_kernel(const float* __restrict__ x, int n, int cin,
       const float u = red[r * TC + tid];
       v = sym_max ? fmaxf(v, u) : v + u;
     }
-    if constexpr (kOneLayer) v += c3[col];
     out[(size_t)b * cout + col] = v;
   }
 }
@@ -241,11 +216,11 @@ extern "C" int p2s_chain_pool(const void* x, int batch, int n, int cin,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      chain_pool_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chain_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch, (cout + TC - 1) / TC);
-  chain_pool_kernel<false><<<grid, THREADS, SMEM_BYTES,
+  chain_pool_kernel<<<grid, THREADS, SMEM_BYTES,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), n, cin, static_cast<const float*>(w1),
       static_cast<const float*>(a1), static_cast<const float*>(c1),
@@ -253,28 +228,5 @@ extern "C" int p2s_chain_pool(const void* x, int batch, int n, int cin,
       static_cast<const float*>(c2), static_cast<const float*>(w3),
       static_cast<const float*>(a3), static_cast<const float*>(c3), cout,
       sym_max, relu_last, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One-layer entry: out (batch, cout) = max_{p < n} (x[b, p, :] @ w) + c, with
-// x (batch, n, cin), cin <= 128, w (cin, cout), c (cout,), all contiguous
-// fp32 on the current device. Returns a cudaError_t; 0 means launched.
-extern "C" int p2s_mlp_maxpool(const void* x, int batch, int n, int cin,
-                               const void* w, const void* c, int cout,
-                               void* out, void* stream) {
-  if (cin < 1 || cin > C2 || n < 1 || batch < 1 || cout < 1 ||
-      (cout + TC - 1) / TC > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_pool_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch, (cout + TC - 1) / TC);
-  chain_pool_kernel<true><<<grid, THREADS, SMEM_BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n, cin, nullptr, nullptr, nullptr,
-      nullptr, nullptr, nullptr, static_cast<const float*>(w), nullptr,
-      static_cast<const float*>(c), cout, 1, 0, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,9 @@ Counterpart of ``points2surf_tpu/ops/pallas/chain_kernel.py`` (``chain_pool``,
     pool_n(L3(relu(L2(relu(L1(x))))))     L_i(h) = (h @ W_i) * a_i + c_i
 
 (relu after L3 only with ``relu_last``), pooled by max or sum over the point
-axis, in fp32. Also the one-layer case ``mlp_maxpool`` (counterpart of
-``points2surf_tpu/ops/pallas/encoder_tail.py``): ``max_n(x @ W) + c``. A CPU
-tensor takes the plain PyTorch version; a CUDA tensor launches the kernel,
-built from the repository's source with ``nvcc`` at its first use, or raises.
+axis, in fp32. A CPU tensor takes the plain PyTorch version; a CUDA tensor
+launches the kernel, built from the repository's source with ``nvcc`` at its
+first use, or raises. The one-layer encoder tail is ``mlp_maxpool.py``.
 """
 
 from __future__ import annotations
@@ -45,9 +44,9 @@ def fold_conv_bn(cbias, scale, bbias, mean, var, eps: float = 1e-5):
     return a, c
 
 
-def _check(x: torch.Tensor, layers, n_layers: int = 3) -> None:
-    if len(layers) != n_layers:
-        raise ValueError(f"expected {n_layers} (W, a, c) layers, got "
+def _check(x: torch.Tensor, layers) -> None:
+    if len(layers) != 3:
+        raise ValueError("expected 3 (W, a, c) layers, got "
                          f"{len(layers)}")
     if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 (B, n, Cin) tensor, "
@@ -113,44 +112,9 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
 chain_pool.launches = 0
 
 
-def mlp_maxpool_reference(x: torch.Tensor, w: torch.Tensor,
-                          c: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`mlp_maxpool`."""
-    return torch.amax(torch.matmul(x, w), dim=1) + c
-
-
-def mlp_maxpool(x: torch.Tensor, w: torch.Tensor,
-                c: torch.Tensor) -> torch.Tensor:
-    """``max_n(x @ w) + c``: one pointwise layer, max pool, bias after the
-    pool (the folded-BN encoder tail). x (B, n, Cin) float32, w (Cin, Cout),
-    c (Cout,) -> (B, Cout) float32. On CUDA the one-layer entry of the
-    chain kernel takes Cin <= 128 and any n."""
-    _check(x, ((w, c, c),), n_layers=1)  # no scale a: c stands in
-    if x.device.type == "cpu":
-        return mlp_maxpool_reference(x, w, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"mlp_maxpool has no kernel for {x.device}")
-    b, n, cin = x.shape
-    if cin > KERNEL_C2:
-        raise ValueError(f"CUDA mlp_maxpool takes Cin <= {KERNEL_C2}, "
-                         f"got {cin}")
-    cout = w.shape[1]
-    out = torch.empty((b, cout), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        rc = _library().p2s_mlp_maxpool(
-            x.data_ptr(), b, n, cin, w.data_ptr(), c.data_ptr(), cout,
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch("mlp_maxpool", rc)
-    mlp_maxpool.launches += 1
-    return out
-
-
-mlp_maxpool.launches = 0
-
 _ENTRY_POINTS = (
     ("p2s_chain_pool", (VP, CI, CI, CI, VP, VP, VP, CI, VP, VP, VP, CI,
                         VP, VP, VP, CI, CI, CI, VP, VP)),
-    ("p2s_mlp_maxpool", (VP, CI, CI, CI, VP, VP, CI, VP, VP)),
 )
 
 

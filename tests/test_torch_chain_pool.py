@@ -1,9 +1,8 @@
-"""Port parity: the fused eval chain (``ops/kernels/chain_pool.py``) and its
-one-layer case ``mlp_maxpool`` (the JAX package's ``encoder_tail``).
+"""Port parity: the fused eval chain (``ops/kernels/chain_pool.py``).
 
-On the CPU the wrappers take their plain PyTorch versions, which are held
-here against the JAX Pallas kernels (interpret mode, fp32 operands) and
-their literal oracles. The CUDA kernel itself is held against the plain version on
+On the CPU the wrapper takes its plain PyTorch version, which is held
+here against the JAX Pallas kernel (interpret mode, fp32 operands) and
+its literal oracle. The CUDA kernel itself is held against the plain version on
 the card (``cuda``-marked test below; ``chip_smoke.py`` runs the same check
 at the model's call-site shapes).
 """
@@ -16,8 +15,6 @@ from points2surf_tpu_torch.ops.kernels.chain_pool import (
     chain_pool,
     chain_pool_reference,
     fold_conv_bn,
-    mlp_maxpool,
-    mlp_maxpool_reference,
 )
 
 
@@ -95,43 +92,6 @@ def test_chain_pool_wrapper_checks(rng):
     assert torch.equal(out, chain_pool_reference(x, layers))
 
 
-def _one_layer(rng, b, n, cin, cout):
-    x = rng.randn(b, n, cin).astype(np.float32)
-    w = (rng.randn(cin, cout) * 0.1).astype(np.float32)
-    c = rng.randn(cout).astype(np.float32)
-    return x, w, c
-
-
-# the JAX package's encoder-tail tests (tests/test_pallas.py): the kernel
-# shape in interpret mode, and an odd shape that takes its XLA fallback
-@pytest.mark.parametrize("b,n,kw", [(16, 256, dict(interpret=True)),
-                                    (6, 100, {})])
-def test_mlp_maxpool_matches_jax(rng, b, n, kw):
-    jnp = pytest.importorskip("jax.numpy")
-    from points2surf_tpu.ops.pallas import encoder_tail
-
-    x, w, c = _one_layer(rng, b, n, 128, 512)
-    got = mlp_maxpool(*(torch.from_numpy(a) for a in (x, w, c))).numpy()
-    want = np.asarray(encoder_tail.mlp_maxpool(
-        jnp.asarray(x), jnp.asarray(w), jnp.asarray(c), **kw))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    dense = (x.astype(np.float64) @ w).max(1) + c
-    np.testing.assert_allclose(got, dense, rtol=1e-4, atol=1e-4)
-
-
-def test_mlp_maxpool_wrapper_checks(rng):
-    x, w, c = (torch.from_numpy(a) for a in _one_layer(rng, 2, 5, 16, 8))
-    with pytest.raises(ValueError):
-        mlp_maxpool(x, w[:8].contiguous(), c)
-    with pytest.raises(ValueError):
-        mlp_maxpool(x, w, c[:4])
-    with pytest.raises(ValueError):
-        mlp_maxpool(x.double(), w, c)
-    before = mlp_maxpool.launches
-    assert torch.equal(mlp_maxpool(x, w, c), mlp_maxpool_reference(x, w, c))
-    assert mlp_maxpool.launches == before
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -154,22 +114,5 @@ def test_chain_pool_kernel_matches_plain(cuda_device, b, n, cin, sym_op):
     torch.cuda.synchronize()
     assert chain_pool.launches == before + 1
     want = chain_pool_reference(x, tl, sym_op=sym_op)
-    atol = 1e-4 * float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,cin,cout", [(64, 300, 128, 1024),
-                                          (16, 256, 128, 512),
-                                          (37, 129, 3, 1000)])
-def test_mlp_maxpool_kernel_matches_plain(cuda_device, b, n, cin, cout):
-    rng = np.random.RandomState(0)
-    x, w, c = (torch.from_numpy(a).to(cuda_device)
-               for a in _one_layer(rng, b, n, cin, cout))
-    before = mlp_maxpool.launches
-    got = mlp_maxpool(x, w, c)
-    torch.cuda.synchronize()
-    assert mlp_maxpool.launches == before + 1
-    want = mlp_maxpool_reference(x, w, c)
     atol = 1e-4 * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
