@@ -10,13 +10,17 @@ decimation 4) and the fused train step (decimation 8, SGD with momentum):
 1. device: card name and power limit, torch/CUDA versions, the kernels'
    build (one ``nvcc`` per source, in parallel);
 2. each hand-written kernel against its plain PyTorch version on the card,
-   at the shapes of its call sites (``chain_pool`` on the query path,
-   ``pooled_tail`` on the train path), and ``mlp_maxpool``, which no path
+   at the shapes of its call sites: the eval chain's two kernels
+   (``chain_head``, layers 1-2, and ``chain_pool``, layer 3 and the pool)
+   at batch 64 and at the query batch 4096 (plain versions in row chunks
+   there), with their times and the five chains' share of their bound;
+   ``pooled_tail`` on the train path; ``mlp_maxpool``, which no path
    calls, at four encoder-tail shapes (``MLP_SHAPES``);
 3. the query slice on the GPU against the same slice on the CPU, on the
    bundled cloud, with the same weights and injected random draws;
 4. query throughput at batch 4096 on the grid-256 near-surface queries,
-   with its stage split and ``chain_pool``'s launch count;
+   with its stage split, the chain kernels' launch counts and a
+   ``torch.profiler`` summary (device time by kernel, idle share);
 5. one fused train step on the GPU against the same step on the CPU in
    float64 at batch 64: same weights, momentum buffers, random draws and
    rotations;
@@ -47,6 +51,7 @@ BATCH = 4096
 WARMUP_BATCHES = 3
 TIMED_BATCHES = 10
 SPLIT_BATCHES = 5
+PROFILE_BATCHES = 3
 OUTPUTS = ("imp_surf_magnitude", "imp_surf_sign")
 # chain call sites of the bench model's forward: (Cin, n points, count)
 CHAIN_SITES = ((3, 1300, 1), (64, 1000, 2), (64, 300, 2))
@@ -58,7 +63,11 @@ TRAIN_WARMUP = 3
 TRAIN_TIMED = 10
 TRAIN_SPLIT = 3
 SLICE_TRAIN_BATCH = 64
-KERNEL_SOURCES = ("chain_pool", "pooled_tail", "mlp_maxpool")
+KERNEL_SOURCES = ("chain_head", "chain_pool", "pooled_tail", "mlp_maxpool")
+# least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
+# peak, and HBM3 at 3.35 TB/s (H100 SXM data sheet)
+PEAK_FLOPS = 495e12 / 3
+PEAK_BYTES = 3.35e12
 # mlp_maxpool shapes (B, n, Cin, Cout): the JAX package's test, the local
 # encoder tail at batch 64, the local and global encoder tails at the train
 # batch; the JSON line reports the second
@@ -92,7 +101,7 @@ def phase_device(torch):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     card = smi[0].strip()
-    print(f"[device] {card}")
+    print(card)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"capability {torch.cuda.get_device_capability(0)}")
@@ -106,7 +115,8 @@ def phase_device(torch):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         built = list(ex.map(build.build_library, KERNEL_SOURCES))
-    cp._library()
+    cp._head_library()
+    cp._tail_library()
     pt._library()
     mm._library()
     print(f"[device] {len(built)} kernel sources built in parallel + loaded "
@@ -141,50 +151,133 @@ def _random_chain(torch, gen, cin: int, device):
     return tuple(layers)
 
 
+def _bound(flop: float, nbytes: float):
+    """(least ms on the card, what bounds it): FLOP of fp32-class work at
+    PEAK_FLOPS, bytes (each input read once, each output written once) at
+    PEAK_BYTES."""
+    t_ops, t_bytes = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _head_cost(b, n, cin):
+    """(FLOP, bytes) of chain_head: layers 1-2 of b * n points."""
+    flop = 2.0 * b * n * (cin * 64 + 64 * 128)
+    nbytes = 4.0 * (b * n * (cin + 128) + cin * 64 + 64 * 128 + 2 * 192)
+    return flop, nbytes
+
+
+def _tail_cost(b, n, cout=NET):
+    """(FLOP, bytes) of the layer-3 kernel: 128 -> cout and the pool."""
+    flop = 2.0 * b * n * 128 * cout
+    nbytes = 4.0 * (b * n * 128 + 128 * cout + 2 * cout + b * cout)
+    return flop, nbytes
+
+
+def _chunked(torch, fn, x, rows: int):
+    """fn over row chunks of x, concatenated: the plain versions at the
+    query batch would otherwise materialize (4096, n, 1024) activations."""
+    return torch.cat([fn(x[i:i + rows]) for i in range(0, x.shape[0], rows)])
+
+
 def phase_kernels(torch, device):
+    """chain_head and the layer-3 kernel (chain_pool) against their plain
+    versions: the call sites at batch 64 and at the query batch, ragged n,
+    B = 1; timings at both batches."""
     from points2surf_tpu_torch.ops.kernels.chain_pool import (
-        chain_pool, chain_pool_reference)
+        chain_head, chain_head_reference, chain_pool, chain_pool_reference,
+        chain_tail, chain_tail_reference)
 
     gen = torch.Generator().manual_seed(SEED)
-    cases = [(64, n, cin) for cin, n, _ in CHAIN_SITES] + [(37, 129, 64),
-                                                           (37, 129, 3)]
-    max_err = 0.0
+    dgen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cases = [(64, n, cin) for cin, n, _ in CHAIN_SITES] + [
+        (BATCH, n, cin) for cin, n, _ in CHAIN_SITES] + [
+        (37, 129, 64), (37, 129, 3), (1, 77, 3)]
+    err = {"chain_head": 0.0, "chain_pool": 0.0, "chain": 0.0}
     times = {}
     for b, n, cin in cases:
-        x = torch.randn((b, n, cin), generator=gen).to(device)
+        x = torch.randn((b, n, cin), generator=dgen, device=device)
         layers = _random_chain(torch, gen, cin, device)
+        h2 = chain_head(x, layers[:2])
+        e, bad = _close(h2, chain_head_reference(x, layers[:2]),
+                        "chain_head")
+        err["chain_head"] = max(err["chain_head"], e)
+        print(f"[kernel] chain_head B={b} n={n} cin={cin}: max_abs_err "
+              f"{e:.3e} (rtol 1e-4, atol 1e-4*max|ref|), {bad} outside")
+        check(bad == 0, f"chain_head disagrees with its plain version: "
+                        f"B={b} n={n} cin={cin}")
+        rows = 128 if b == BATCH else b
         for sym in ("max", "sum"):
+            tail = lambda v: chain_tail_reference(  # noqa: E731
+                v, layers[2], sym_op=sym)
+            full = lambda v: chain_pool_reference(  # noqa: E731
+                v, layers, sym_op=sym)
+            got = chain_tail(h2, layers[2], sym_op=sym)
+            e_t, bad_t = _close(got, _chunked(torch, tail, h2, rows),
+                                "chain_pool layer 3")
             got = chain_pool(x, layers, sym_op=sym)
-            want = chain_pool_reference(x, layers, sym_op=sym)
             torch.cuda.synchronize()
-            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-                  f"chain_pool {b}x{n}x{cin} {sym}: bad output")
-            err = (got - want).abs()
-            atol = 1e-4 * float(want.abs().max())
-            bad = int((err > atol + 1e-4 * want.abs()).sum())
-            max_err = max(max_err, float(err.max()))
-            msg = (f"[kernel] chain_pool B={b} n={n} cin={cin} {sym}: "
-                   f"max_abs_err {float(err.max()):.3e} "
-                   f"(atol {atol:.3e}, rtol 1e-4), {bad} outside")
-            if b == 64:
-                t_k = _events_ms(torch, lambda: chain_pool(
-                    x, layers, sym_op=sym), 20)
-                t_p = _events_ms(torch, lambda: chain_pool_reference(
-                    x, layers, sym_op=sym), 20)
-                times[(cin, n, sym)] = (t_k, t_p)
-                flop = 2.0 * b * n * (cin * 64 + 64 * 128 + 128 * NET)
-                msg += (f"; kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} "
-                        f"TFLOP/s), plain {t_p:.4f} ms")
-            print(msg)
-            check(bad == 0, f"chain_pool disagrees with its plain version: "
-                            f"B={b} n={n} cin={cin} {sym}")
-    # one bench forward's five chains (max pool) at B=64
-    ms = sum(cnt * times[(cin, n, "max")][0] for cin, n, cnt in CHAIN_SITES)
-    plain_ms = sum(cnt * times[(cin, n, "max")][1]
-                   for cin, n, cnt in CHAIN_SITES)
-    print(f"[kernel] five chains of one B=64 forward: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            check(bool(torch.isfinite(got).all()),
+                  f"chain_pool {b}x{n}x{cin} {sym}: non-finite output")
+            e_c, bad_c = _close(got, _chunked(torch, full, x, rows),
+                                "chain_pool")
+            err["chain_pool"] = max(err["chain_pool"], e_t)
+            err["chain"] = max(err["chain"], e_c)
+            print(f"[kernel] chain_pool B={b} n={n} cin={cin} {sym}: layer 3 "
+                  f"vs plain max_abs_err {e_t:.3e}, {bad_t} outside; whole "
+                  f"chain vs plain {e_c:.3e}, {bad_c} outside (rtol 1e-4, "
+                  f"atol 1e-4*max|ref|)")
+            check(bad_t == 0 and bad_c == 0,
+                  f"chain_pool disagrees with its plain version: B={b} n={n} "
+                  f"cin={cin} {sym}")
+        if b not in (64, BATCH):
+            continue
+        # max pool, as the query path runs it; the plain chain and layer 3
+        # in row chunks at the query batch, whole at batch 64
+        iters, p_iters = (5, 2) if b == BATCH else (20, 20)
+        t = {
+            "chain": _events_ms(torch, lambda: chain_pool(x, layers), iters),
+            "head": _events_ms(torch, lambda: chain_head(x, layers[:2]),
+                               iters),
+            "tail": _events_ms(torch, lambda: chain_tail(h2, layers[2]),
+                               iters),
+            "chain_plain": _events_ms(torch, lambda: _chunked(
+                torch, lambda v: chain_pool_reference(v, layers), x, rows),
+                p_iters),
+            "head_plain": _events_ms(torch, lambda: chain_head_reference(
+                x, layers[:2]), p_iters),
+            "tail_plain": _events_ms(torch, lambda: _chunked(
+                torch, lambda v: chain_tail_reference(v, layers[2]), h2,
+                rows), p_iters),
+        }
+        times[(b, cin, n)] = t
+        f_head, _ = _head_cost(b, n, cin)
+        f_tail, _ = _tail_cost(b, n)
+        print(f"[kernel] chain_pool B={b} cin={cin} n={n} max: chain "
+              f"{t['chain']:.4f} ms ({(f_head + f_tail) / t['chain'] / 1e9:.1f}"
+              f" TFLOP/s) vs plain {t['chain_plain']:.4f} ms; chain_head "
+              f"{t['head']:.4f} ms ({f_head / t['head'] / 1e9:.1f}) vs plain "
+              f"{t['head_plain']:.4f}; layer 3 {t['tail']:.4f} ms "
+              f"({f_tail / t['tail'] / 1e9:.1f}) vs plain "
+              f"{t['tail_plain']:.4f}")
+        del x, h2
+    res = {"err": err}
+    for b in (64, BATCH):
+        tot = {k: sum(cnt * times[(b, cin, n)][k]
+                      for cin, n, cnt in CHAIN_SITES)
+               for k in times[(b, CHAIN_SITES[0][0], CHAIN_SITES[0][1])]}
+        head_cost = [sum(cnt * _head_cost(b, n, cin)[i]
+                         for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
+        tail_cost = [sum(cnt * _tail_cost(b, n)[i]
+                         for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
+        flop = head_cost[0] + tail_cost[0]
+        bound = flop / PEAK_FLOPS * 1e3
+        print(f"[kernel] five chains of one B={b} forward (max): "
+              f"{tot['chain']:.4f} ms, {flop / tot['chain'] / 1e9:.1f} "
+              f"TFLOP/s, {bound / tot['chain']:.1%} of the {bound:.3f} ms "
+              f"bound; chain_head {tot['head']:.4f} ms, layer 3 "
+              f"{tot['tail']:.4f} ms; plain {tot['chain_plain']:.4f} ms")
+        res[b] = dict(tot, head_cost=head_cost, tail_cost=tail_cost)
+    return res
 
 
 def phase_tail_kernels(torch, device):
@@ -367,7 +460,8 @@ def phase_slice(torch, np, device, cfg, model, pts_pad, n, queries):
 def phase_throughput(torch, device, cfg, model, pts_pad, n, queries):
     from points2surf_tpu_torch.infer.query import (
         make_sdf_query_fn, postprocess_sdf)
-    from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
     from points2surf_tpu_torch.ops.patches import extract_patches
 
     pts_t = torch.from_numpy(pts_pad).to(device)
@@ -383,6 +477,7 @@ def phase_throughput(torch, device, cfg, model, pts_pad, n, queries):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     chain_pool.launches = 0
+    chain_head.launches = 0
     for i in range(WARMUP_BATCHES):
         out = fn(pts_t, batch_queries(i), n, gen)
     torch.cuda.synchronize()
@@ -407,7 +502,8 @@ def phase_throughput(torch, device, cfg, model, pts_pad, n, queries):
             postprocess_sdf(pred, batch["patch_radius_ms"], OUTPUTS, False)
             ev[j][3].record()
     torch.cuda.synchronize()
-    launches = chain_pool.launches
+    launches = {"chain_pool": chain_pool.launches,
+                "chain_head": chain_head.launches}
     n_batches = WARMUP_BATCHES + TIMED_BATCHES + SPLIT_BATCHES
     split = [sum(e[s].elapsed_time(e[s + 1]) for e in ev) / SPLIT_BATCHES
              for s in range(3)]
@@ -418,13 +514,50 @@ def phase_throughput(torch, device, cfg, model, pts_pad, n, queries):
     print(f"[main] stage split per batch (CUDA events, mean of "
           f"{SPLIT_BATCHES}): extraction {split[0]:.2f} ms, forward "
           f"{split[1]:.2f} ms, post-processing {split[2]:.3f} ms")
-    print(f"[main] chain_pool launches {launches} over {n_batches} batches "
-          f"(expected {5 * n_batches})")
+    print(f"[main] chain_pool launches {launches['chain_pool']}, chain_head "
+          f"launches {launches['chain_head']} over {n_batches} batches "
+          f"(expected {5 * n_batches} each)")
     print(f"[main] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    check(launches == 5 * n_batches,
-          "chain_pool was not launched five times per forward")
+    for name, count in launches.items():
+        check(count == 5 * n_batches,
+              f"{name} was not launched five times per forward")
+    _profile(torch, lambda i: fn(pts_t, batch_queries(i), n, gen),
+             PROFILE_BATCHES, "main")
     return launches
+
+
+def _profile(torch, step, count: int, tag: str) -> None:
+    """Device time by kernel name and the device's idle share over `count`
+    steady calls of step(i), from a torch.profiler trace (CUPTI)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(count):
+            step(i + 1)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"[{tag}] profile: no device events in the trace (not "
+              f"measured)")
+        return
+    busy, end, by_name = 0.0, spans[0][0], {}
+    for t0, t1, name in spans:  # union of the device intervals
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    span = end - spans[0][0]
+    print(f"[{tag}] profile of {count} calls: device busy {busy / 1e3:.3f} "
+          f"ms of a {span / 1e3:.3f} ms span, idle {1 - busy / span:.1%}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[{tag}]   {us / count / 1e3:9.3f} ms per call "
+              f"({us / busy:6.1%}) {name[:90]}")
 
 
 def _train_cfg():
@@ -731,34 +864,51 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the two paths: {mlp_launches} "
           "(no caller in either package)")
-    print(json.dumps({"kernels": [{
-        "name": "chain_pool",
-        "route": "cuda",
-        "source": "points2surf_tpu_torch/csrc/chain_pool.cu",
-        "replaces": "points2surf_tpu/ops/pallas/chain_kernel.py:187",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }, {
-        "name": "pooled_tail",
-        "route": "cuda",
-        "source": "points2surf_tpu_torch/csrc/pooled_tail.cu",
-        "replaces": "points2surf_tpu/ops/pallas/train_tail.py:138",
-        "launches": tail_launches,
-        "max_abs_err": tail["max_abs_err"],
-        "ms": tail["ms"],
-        "plain_ms": tail["plain_ms"],
-    }, {
-        "name": "mlp_maxpool",
-        "route": "cuda",
-        "source": "points2surf_tpu_torch/csrc/mlp_maxpool.cu",
-        "replaces": "points2surf_tpu/ops/pallas/encoder_tail.py:52",
-        "launches": mlp_launches,
-        "max_abs_err": mlp["max_abs_err"],
-        "ms": mlp["ms"],
-        "plain_ms": mlp["plain_ms"],
-    }]}))
+    q = kern[BATCH]
+    tail_flop = sum(cnt * 2.0 * TRAIN_BATCH * n * 128 * NET
+                    for n, cnt in TAIL_SITES)
+    tail_bytes = sum(cnt * 4.0 * (TRAIN_BATCH * n * 128 + 128 * NET + NET
+                                  + 6 * TRAIN_BATCH * NET)
+                     for n, cnt in TAIL_SITES)
+    b, n, cin, cout = MLP_SHAPES[1]
+    mlp_flop = 2.0 * b * n * cin * cout
+    mlp_bytes = 4.0 * (b * n * cin + cin * cout + cout + b * cout)
+    # chain_head and chain_pool: the five call sites of one query forward at
+    # batch BATCH; pooled_tail: the five conv3 tails of one train step;
+    # mlp_maxpool: MLP_SHAPES[1]. No single PyTorch call computes any of
+    # the four functions, so library_ms is null.
+    entries = (
+        ("chain_head", "chain_head.cu", "chain_kernel.py:187",
+         launches["chain_head"], kern["err"]["chain_head"], q["head"],
+         q["head_plain"], *q["head_cost"]),
+        ("chain_pool", "chain_pool.cu", "chain_kernel.py:187",
+         launches["chain_pool"], kern["err"]["chain_pool"], q["tail"],
+         q["tail_plain"], *q["tail_cost"]),
+        ("pooled_tail", "pooled_tail.cu", "train_tail.py:138", tail_launches,
+         tail["max_abs_err"], tail["ms"], tail["plain_ms"], tail_flop,
+         tail_bytes),
+        ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52", mlp_launches,
+         mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
+         mlp_bytes),
+    )
+    kernels = []
+    for name, src, tpu, count, err, ms, plain_ms, flop, nbytes in entries:
+        bound_ms, bound_by = _bound(flop, nbytes)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"points2surf_tpu_torch/csrc/{src}",
+            "replaces": f"points2surf_tpu/ops/pallas/{tpu}",
+            "launches": count,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,232 +1,324 @@
-// Fused eval chain: three pointwise linear layers with folded BatchNorm
-// affines, ReLU between them, then a max or sum pool over the point axis.
+// Fused eval chain, layer 3 and the pool: the last pointwise layer with its
+// folded BatchNorm affine, then a max or sum pool over the point axis.
 //
-//   out[b, j] = pool_{p < n} L3(relu(L2(relu(L1(x[b, p, :])))))[j]
-//   L_i(h) = (h @ W_i) * a_i + c_i        (relu after L3 only if relu_last)
+//   out[b, j] = pool_{p < n} act(h2[b, p, :] @ W3[:, j] * a3[j] + c3[j])
+//   act = relu with relu_last, else the identity
 //
-// Replaces the TPU kernel points2surf_tpu/ops/pallas/chain_kernel.py
-// (_chain_kernel, reached through chain_pool / _chain_pool). Numerics class:
-// fp32 operands, fp32 accumulation (P2S_EVAL_CHAIN_PREC=highest there).
+// h2 = relu(L2(relu(L1(x)))) comes from chain_head.cu; the two kernels
+// together replace the TPU kernel points2surf_tpu/ops/pallas/chain_kernel.py
+// (_chain_pool, :187, reached through chain_pool). Numerics class: fp32, as
+// P2S_EVAL_CHAIN_PREC=highest there: 3xTF32 products on the tensor cores
+// (hopper_mma.cuh), ~2^-21 of each product short of fp32.
 //
-// What bounds it on an H100: arithmetic. Per query the model runs ~1.1 GFLOP
-// in its five chains, ~92% of it in the 128 -> C_out layer. Each W3 tile is
-// read once per block and reused for every point of the row, so a block does
-// n * 128 * 256 FMAs per 128 KB of weights: compute-bound on the fp32 FMA
-// pipes, far from the HBM roof. The literal version would instead write a
-// (B, n, C_out) activation (f32[4096, 1300, 1024] = 21.8 GB for the point-STN
-// chain at batch 4096); here nothing but the (B, C_out) result leaves the SM.
+// What bounds it on an H100: arithmetic. A query forward's five chains do
+// 2 n (Cin 64 + 64 128 + 128 Cout) FLOP per row and chain, 4.54 TFLOP per
+// batch of 4096 (92% of it here, in 128 -> 1024); at the 165 TFLOP/s of
+// fp32-class work that 3xTF32 gets from the 495 TFLOP/s dense TF32 peak
+// that is 27.5 ms, against ~0.8 ms to read the inputs once. The SIMT fp32
+// kernel this replaces ran near 27 TFLOP/s, well under the 67 TFLOP/s that
+// the fp32 pipes could give at best.
 //
-// Design: grid = (batch row, C_out tile of 256). A block stages its W3 tile
-// (128 x 256) and W2 in shared memory, walks the whole point axis in chunks
-// of 64 points, recomputes layers 1-2 for each chunk (the price of needing no
-// other block's result: no atomics, no second pass), and keeps the running
-// pool in registers. Every layer is a register-tiled SIMT product from
-// shared memory; activations are stored transposed ([channel][point], row
-// stride 68 floats) so a thread reads its rows as float4 broadcasts and the
-// epilogue stores hit distinct banks. wgmma/TMA and lower-precision
-// operands are later work here; csrc/mlp_maxpool.cu (the one-layer encoder
-// tail) is the first kernel of the port built on them.
+// Design: mlp_maxpool.cu's, generalised (the W3^T hi/lo prologue, the
+// 3xTF32 chunk product and the helpers are hopper_mma.cuh). grid = column
+// tile of 128 (fastest, so the 8 blocks that read one h2 slab run together
+// and share it in L2) x point split x batch row. A block loads its W3^T
+// tile, hi and lo (128 KB for k = 128), once by TMA and keeps it resident;
+// only h2 streams through a 3-stage ring, by TMA from its 3-D tensor map
+// (128, n, B): a third of the shared-memory traffic of mlp_maxpool's ring,
+// which streams W beside x for every slab. After each slab every
+// accumulator gets fmaf(acc, a3, c3) and the optional relu before it is
+// pooled, so a negative scale needs no special case; rows >= n are masked
+// to -inf for max, to 0 for sum (TMA's zero rows would otherwise win a max
+// or add relu(c3)). Max may split the point axis when batch * column tiles
+// is short of the SM count (an atomic max on the float's bits: order-free,
+// so deterministic); sum never splits, and its per-thread, shuffle and
+// per-warp orders are fixed, so it is deterministic too. 231,480 bytes of
+// shared memory, one block per SM.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
-#include "tile_product.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int C1 = 64;         // conv1 width (fixed by the architecture)
-constexpr int C2 = 128;        // conv2 width (fixed by the architecture)
-constexpr int TC = 256;        // C_out columns per block
-constexpr int CIN_MAX = 64;
-constexpr int THREADS = 256;
-
-// shared-memory layout, in floats (every offset a multiple of 4)
-constexpr int OFF_W2 = 0;                       // [C1][C2]
-constexpr int OFF_W3 = OFF_W2 + C1 * C2;        // [C2][TC]
-constexpr int OFF_H1 = OFF_W3 + C2 * TC;        // [C1][NPS] layer-1 output
-constexpr int OFF_R = OFF_H1 + C1 * NPS;        // x chunk + W1, then h2
-constexpr int R_X = CIN_MAX * NPS;              // W1 offset inside R
-constexpr int R_SIZE = (C2 * NPS > R_X + CIN_MAX * C1) ? C2 * NPS
-                                                       : R_X + CIN_MAX * C1;
-constexpr int OFF_A1 = OFF_R + R_SIZE;
-constexpr int OFF_B1 = OFF_A1 + C1;
-constexpr int OFF_A2 = OFF_B1 + C1;
-constexpr int OFF_B2 = OFF_A2 + C2;
-constexpr int OFF_A3 = OFF_B2 + C2;
-constexpr int OFF_B3 = OFF_A3 + TC;
-constexpr int SMEM_FLOATS = OFF_B3 + TC;
-constexpr int SMEM_BYTES = SMEM_FLOATS * 4;     // 219,648 of 232,448
+// W3^T stays resident: a block's column tile, hi and lo, every K chunk of
+// k <= KC_MAX * BK; only h2 streams through the ring.
+constexpr int KC_MAX = 4;
+constexpr int WRES_BYTES = KC_MAX * W_BYTES;  // one of W^T hi, W^T lo
+constexpr int XSTAGE_BYTES = 2 * X_BYTES;     // h2 chunk (raw, then hi), lo
+constexpr int AC_BYTES = 2 * BN * 4;          // the tile's a3, then c3
+constexpr int BARS_BYTES = (2 * STAGES + 1) * 8;
+// + 1024: the swizzled tiles need 1024-byte alignment, the base has 16
+constexpr int SMEM_BYTES = 2 * WRES_BYTES + STAGES * XSTAGE_BYTES + AC_BYTES +
+                           BARS_BYTES + 1024;
 static_assert(SMEM_BYTES <= 232448, "shared memory over the sm_90 limit");
-static_assert(8 * TC <= C1 * NPS, "pool reduction buffer must fit in h1");
+static_assert(RED_BYTES <= STAGES * XSTAGE_BYTES, "red aliases the ring");
 
-// Ht[col][row] = relu(acc * a[col] + c[col]) for the thread's tile.
-template <int N, int TM, int TN>
-__device__ __forceinline__ void store_hidden(float* __restrict__ Ht,
-                                             const float* __restrict__ a,
-                                             const float* __restrict__ c,
-                                             int rg, int cg,
-                                             const float (&acc)[TM][TN]) {
-  constexpr int NCG = N / TN;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int col = cg + NCG * j;
-    const float aa = a[col];
-    const float cc = c[col];
-#pragma unroll
-    for (int u = 0; u < TM / 4; ++u) {
-      float4 v;
-      v.x = fmaxf(fmaf(acc[4 * u][j], aa, cc), 0.f);
-      v.y = fmaxf(fmaf(acc[4 * u + 1][j], aa, cc), 0.f);
-      v.z = fmaxf(fmaf(acc[4 * u + 2][j], aa, cc), 0.f);
-      v.w = fmaxf(fmaf(acc[4 * u + 3][j], aa, cc), 0.f);
-      *reinterpret_cast<float4*>(Ht + col * NPS + rg * TM + 4 * u) = v;
-    }
-  }
-}
-
+template <bool kMax, bool kRelu>
 __global__ void __launch_bounds__(THREADS, 1)
-chain_pool_kernel(const float* __restrict__ x, int n, int cin,
-                  const float* __restrict__ w1, const float* __restrict__ a1,
-                  const float* __restrict__ c1, const float* __restrict__ w2,
-                  const float* __restrict__ a2, const float* __restrict__ c2,
-                  const float* __restrict__ w3, const float* __restrict__ a3,
-                  const float* __restrict__ c3, int cout, int sym_max,
-                  int relu_last, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* W2s = smem + OFF_W2;
-  float* W3s = smem + OFF_W3;
-  float* h1t = smem + OFF_H1;
-  float* xt = smem + OFF_R;        // [cin][NPS], dead after layer 1
-  float* W1s = smem + OFF_R + R_X; // [cin][C1], dead after layer 1
-  float* h2t = smem + OFF_R;       // [C2][NPS], overwrites xt and W1s
-  float* a1s = smem + OFF_A1;
-  float* b1s = smem + OFF_B1;
-  float* a2s = smem + OFF_A2;
-  float* b2s = smem + OFF_B2;
-  float* a3s = smem + OFF_A3;
-  float* b3s = smem + OFF_B3;
+chain_pool_kernel(const __grid_constant__ CUtensorMap h_map,
+                  const __grid_constant__ CUtensorMap w_hi_map,
+                  const __grid_constant__ CUtensorMap w_lo_map, int n,
+                  int kp, int cout, int col_tiles, int splits,
+                  int slabs_per_split, const float* __restrict__ a3,
+                  const float* __restrict__ c3, float* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* w_hi = smem;
+  uint8_t* w_lo = smem + WRES_BYTES;
+  uint8_t* ring = smem + 2 * WRES_BYTES;
+  float* red = reinterpret_cast<float*>(ring);  // after the last slab
+  float* ac = reinterpret_cast<float*>(ring + STAGES * XSTAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ac + 2 * BN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* w_full = empty + STAGES;
 
-  const int b = blockIdx.x;
-  const int col0 = blockIdx.y * TC;
+  int idx = blockIdx.x;
+  const int col0 = (idx % col_tiles) * BN;
+  idx /= col_tiles;
+  const int split = idx % splits;
+  const int b = idx / splits;
+  const int n_slabs = (n + BM - 1) / BM;
+  const int slab0 = split * slabs_per_split;
+  const int slab1 = min(n_slabs, slab0 + slabs_per_split);
+  const int chunks = (kp + BK - 1) / BK;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < C1 * C2; i += THREADS) W2s[i] = w2[i];
-  for (int i = tid; i < C2 * TC; i += THREADS) {
-    const int k = i / TC;
-    const int col = col0 + (i - k * TC);
-    W3s[i] = col < cout ? w3[(size_t)k * cout + col] : 0.f;
-  }
-  for (int i = tid; i < C1; i += THREADS) {
-    a1s[i] = a1[i];
-    b1s[i] = c1[i];
-  }
-  for (int i = tid; i < C2; i += THREADS) {
-    a2s[i] = a2[i];
-    b2s[i] = c2[i];
-  }
-  for (int i = tid; i < TC; i += THREADS) {
-    const int col = col0 + i;
-    a3s[i] = col < cout ? a3[col] : 0.f;
-    b3s[i] = col < cout ? c3[col] : 0.f;
-  }
-
-  // thread tiles: layer 1 64x64 (4x4 each), layer 2 64x128 (4x8),
-  // layer 3 64x256 (8x8)
-  const int rg12 = tid / 16, cg12 = tid % 16;
-  const int rg3 = tid / 32, cg3 = tid % 32;
-
-  float pool[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) pool[j] = sym_max ? -CUDART_INF_F : 0.f;
-
-  const float* xb = x + (size_t)b * n * cin;
-  for (int p0 = 0; p0 < n; p0 += NP) {
-    __syncthreads();  // staging done / previous chunk's layer 3 left R
-    for (int i = tid; i < NP * cin; i += THREADS) {
-      const int r = i / cin;
-      const int ci = i - r * cin;
-      xt[ci * NPS + r] = (p0 + r < n) ? xb[(size_t)p0 * cin + i] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    for (int i = tid; i < cin * C1; i += THREADS) W1s[i] = w1[i];
-    __syncthreads();
-    {
-      float acc[4][4];
-      tile_product<C1, 4, 4>(xt, W1s, cin, rg12, cg12, acc);
-      store_hidden<C1, 4, 4>(h1t, a1s, b1s, rg12, cg12, acc);
-    }
-    __syncthreads();
-    {
-      float acc[4][8];
-      tile_product<C2, 4, 8>(h1t, W2s, C1, rg12, cg12, acc);
-      store_hidden<C2, 4, 8>(h2t, a2s, b2s, rg12, cg12, acc);
-    }
-    __syncthreads();
-    {
-      float acc[8][8];
-      tile_product<TC, 8, 8>(h2t, W3s, C2, rg3, cg3, acc);
-      const int rows_left = n - p0 - rg3 * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = cg3 + 32 * j;
-        const float aa = a3s[col];
-        const float cc = b3s[col];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (i < rows_left) {
-            float v = fmaf(acc[i][j], aa, cc);
-            if (relu_last) v = fmaxf(v, 0.f);
-            pool[j] = sym_max ? fmaxf(pool[j], v) : pool[j] + v;
-          }
+    mbar_init(w_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (tid < BN) {
+    const int col = col0 + tid;
+    ac[tid] = col < cout ? a3[col] : 0.f;
+    ac[BN + tid] = col < cout ? c3[col] : 0.f;
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // producer warp: one thread issues every load
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(w_full, 2 * chunks * W_BYTES);
+      for (int k = 0; k < chunks; ++k) {
+        tma_load_2d(w_hi + k * W_BYTES, &w_hi_map, w_full, k * BK, col0);
+        tma_load_2d(w_lo + k * W_BYTES, &w_lo_map, w_full, k * BK, col0);
+      }
+      int it = 0;
+      for (int s = slab0; s < slab1; ++s) {
+        for (int k = 0; k < chunks; ++k, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[st], X_BYTES);
+          tma_load_3d(ring + st * XSTAGE_BYTES, &h_map, &full[st], k * BK,
+                      s * BM, b);
         }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g owns rows 64 g .. 64 g + 63 of every slab
+  const int g = tid / 128;
+  const int t = tid % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const float empty_row = kMax ? -CUDART_INF_F : 0.f;
+  float acc[64];
+  float run[32];  // running pool of this thread's 32 columns
+#pragma unroll
+  for (int i = 0; i < 32; ++i) run[i] = empty_row;
+
+  mbar_wait(w_full, 0);
+  int it = 0;
+  for (int s = slab0; s < slab1; ++s) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int k = 0; k < chunks; ++k, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      uint8_t* base = ring + st * XSTAGE_BYTES;
+      mma_chunk(acc, base, base + X_BYTES, w_hi + k * W_BYTES,
+                w_lo + k * W_BYTES, g, t);
+      mbar_arrive(&empty[st]);
+    }
+    // this thread's rows: r and r + 8 (acc[4 j + e] and acc[4 j + 2 + e])
+    const int rows_left = n - s * BM - 64 * g - 16 * warp - lane / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float2 a = *reinterpret_cast<const float2*>(ac + col);
+      const float2 c = *reinterpret_cast<const float2*>(ac + BN + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float aa = e ? a.y : a.x;
+        const float cc = e ? c.y : c.x;
+        float v0 = fmaf(acc[4 * j + e], aa, cc);
+        float v1 = fmaf(acc[4 * j + 2 + e], aa, cc);
+        if (kRelu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        float m = rows_left > 0 ? v0 : empty_row;
+        if (rows_left > 8) m = kMax ? fmaxf(m, v1) : m + v1;
+        run[2 * j + e] = kMax ? fmaxf(run[2 * j + e], m) : run[2 * j + e] + m;
       }
     }
   }
 
-  // combine the eight row groups' partial pools
-  __syncthreads();
-  float* red = h1t;  // [8][TC]
+  // combine the 8 lanes that share a column, then the 8 consumer warps
 #pragma unroll
-  for (int j = 0; j < 8; ++j) red[rg3 * TC + cg3 + 32 * j] = pool[j];
-  __syncthreads();
-  const int col = col0 + tid;
-  if (col < cout) {
-    float v = red[tid];
-    for (int r = 1; r < 8; ++r) {
-      const float u = red[r * TC + tid];
-      v = sym_max ? fmaxf(v, u) : v + u;
+  for (int i = 0; i < 32; ++i) {
+    float v = run[i];
+#pragma unroll
+    for (int o = 4; o < 32; o *= 2) {
+      const float u = __shfl_xor_sync(0xffffffffu, v, o);
+      v = kMax ? fmaxf(v, u) : v + u;
     }
-    out[(size_t)b * cout + col] = v;
+    run[i] = v;
   }
+  // red aliases the ring: both warpgroups are done with it first
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+  if (lane < 4) {
+    float* row = red + (4 * g + warp) * BN + 2 * lane;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      row[8 * j] = run[2 * j];
+      row[8 * j + 1] = run[2 * j + 1];
+    }
+  }
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+  const int col = col0 + tid;
+  if (tid < BN && col < cout) {
+    float v = red[tid];
+#pragma unroll
+    for (int r = 1; r < 8; ++r) {
+      v = kMax ? fmaxf(v, red[r * BN + tid]) : v + red[r * BN + tid];
+    }
+    float* dst = out + (size_t)b * cout + col;
+    if (kMax && splits > 1) {
+      atomic_max_float(dst, v);
+    } else {
+      *dst = v;
+    }
+  }
+}
+
+template <bool kMax, bool kRelu>
+cudaError_t launch(const CUtensorMap (&maps)[3], unsigned blocks,
+                   cudaStream_t st, int n, int kp, int cout, int col_tiles,
+                   int splits, int per_split, const float* a3,
+                   const float* c3, float* out) {
+  chain_pool_kernel<kMax, kRelu><<<blocks, THREADS, SMEM_BYTES, st>>>(
+      maps[0], maps[1], maps[2], n, kp, cout, col_tiles, splits, per_split,
+      a3, c3, out);
+  return cudaGetLastError();
+}
+
+cudaError_t allow_smem() {
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(chain_pool_kernel<true, false>, attr,
+                                         SMEM_BYTES);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(chain_pool_kernel<true, true>, attr,
+                               SMEM_BYTES);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(chain_pool_kernel<false, false>, attr,
+                               SMEM_BYTES);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(chain_pool_kernel<false, true>, attr,
+                               SMEM_BYTES);
+  }
+  return err;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). All arrays are contiguous fp32 on
-// the current device: x (batch, n, cin), w_i (in_i, out_i), a_i / c_i
-// (out_i,), out (batch, cout). Returns a cudaError_t; 0 means launched.
-extern "C" int p2s_chain_pool(const void* x, int batch, int n, int cin,
-                              const void* w1, const void* a1, const void* c1,
-                              int c1n, const void* w2, const void* a2,
-                              const void* c2, int c2n, const void* w3,
-                              const void* a3, const void* c3, int cout,
-                              int sym_max, int relu_last, void* out,
-                              void* stream) {
-  if (c1n != C1 || c2n != C2 || cin < 1 || cin > CIN_MAX || n < 1 ||
-      batch < 1 || cout < 1 || (cout + TC - 1) / TC > 65535) {
+// On device `dev` and its stream `stream`: out (batch, cout) =
+// pool_{p < n} act(h[b, p, :] @ w * a + c), max if sym_max else sum, relu
+// if relu_last. h is (batch, n, k) with k <= 128 a multiple of 4, base
+// 16-byte aligned; w (k, cout); a, c (cout,); scratch holds 2 * cout * kp + batch *
+// cout floats, kp = k rounded up to 8: the split W^T, then out. All
+// contiguous fp32. Returns a cudaError_t; 0 means launched.
+extern "C" int p2s_chain_pool(int dev, const void* h, int batch, int n, int k,
+                              const void* w, const void* a, const void* c,
+                              int cout, int sym_max, int relu_last,
+                              void* scratch, void* stream) {
+  const int kp = (k + 7) / 8 * 8;
+  if (batch < 1 || n < 1 || k < 4 || k % 4 != 0 || kp > KC_MAX * BK ||
+      cout < 1 ||
+      reinterpret_cast<uintptr_t>(h) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  // the SM count and the shared-memory attribute, once per device
+  constexpr int kMaxDevices = 64;
+  static int sms_of[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  const DeviceGuard guard(dev);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch, (cout + TC - 1) / TC);
-  chain_pool_kernel<<<grid, THREADS, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n, cin, static_cast<const float*>(w1),
-      static_cast<const float*>(a1), static_cast<const float*>(c1),
-      static_cast<const float*>(w2), static_cast<const float*>(a2),
-      static_cast<const float*>(c2), static_cast<const float*>(w3),
-      static_cast<const float*>(a3), static_cast<const float*>(c3), cout,
-      sym_max, relu_last, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int sms = sms_of[dev];
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = allow_smem();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms_of[dev] = sms;
+  }
+
+  const int col_tiles = (cout + BN - 1) / BN;
+  const int n_slabs = (n + BM - 1) / BM;
+  const long long tiles = (long long)batch * col_tiles;
+  int per_split = n_slabs;
+  // a sum keeps each row's points in one block, in a fixed order
+  const int splits =
+      sym_max ? point_splits(sms, tiles, n_slabs, &per_split)
+              : (tiles > 0x7fffffffLL ? 0 : 1);
+  if (splits == 0) return static_cast<int>(cudaErrorInvalidValue);
+
+  float* w_hi = static_cast<float*>(scratch);
+  float* w_lo = w_hi + (size_t)cout * kp;
+  float* out = w_lo + (size_t)cout * kp;
+  CUtensorMap maps[3];
+  if (!encode_ring_maps(maps, h, batch, n, k, w_hi, w_lo, cout, kp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+
+  // the prologue fills out with -inf only where split blocks combine in it
+  const dim3 prep_grid((kp + 31) / 32, (cout + 31) / 32);
+  split_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(w), k, cout, kp, w_hi, w_lo, out,
+      splits > 1 ? (size_t)batch * cout : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = (unsigned)(tiles * splits);
+  const float* a3 = static_cast<const float*>(a);
+  const float* c3 = static_cast<const float*>(c);
+  if (sym_max) {
+    err = relu_last ? launch<true, true>(maps, blocks, st, n, kp, cout,
+                                         col_tiles, splits, per_split, a3,
+                                         c3, out)
+                    : launch<true, false>(maps, blocks, st, n, kp, cout,
+                                          col_tiles, splits, per_split, a3,
+                                          c3, out);
+  } else {
+    err = relu_last ? launch<false, true>(maps, blocks, st, n, kp, cout,
+                                          col_tiles, splits, per_split, a3,
+                                          c3, out)
+                    : launch<false, false>(maps, blocks, st, n, kp, cout,
+                                           col_tiles, splits, per_split, a3,
+                                           c3, out);
+  }
+  return static_cast<int>(err);
 }

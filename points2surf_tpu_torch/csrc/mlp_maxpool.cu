@@ -42,190 +42,25 @@
 //   of a set does not depend on the order of the atomics, so the result is
 //   deterministic. The prologue fills out with -inf. NaN inputs are not
 //   propagated (fmaxf drops them).
+// - The chunk product, its TMA and wgmma helpers and the prologue are shared
+//   with chain_pool.cu in hopper_mma.cuh.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int BM = 128;              // points per slab: two warpgroups of 64
-constexpr int BN = 128;              // output columns per block
-constexpr int BK = 32;               // K chunk: 32 fp32 = one 128-byte row
-constexpr int STAGES = 3;
-constexpr int CONSUMERS = 256;       // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int X_BYTES = BM * BK * 4;
-constexpr int W_BYTES = BN * BK * 4;
 // a stage: x (raw, then its hi part), x lo, W^T hi, W^T lo
 constexpr int STAGE_BYTES = 2 * X_BYTES + 2 * W_BYTES;
 constexpr int TX_BYTES = X_BYTES + 2 * W_BYTES;  // what TMA writes per stage
-constexpr int RED_BYTES = 8 * BN * 4;
 constexpr int BAR_BYTES = 2 * STAGES * 8;
 // + 1024: the swizzled tiles need 1024-byte alignment, the base has 16
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + RED_BYTES + BAR_BYTES + 1024;
 static_assert(SMEM_BYTES <= 232448, "shared memory over the sm_90 limit");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// round to the nearest tf32 (ties away from zero); the low 13 bits are zero
-__device__ __forceinline__ float tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// 8-row atoms of 1024 bytes (stride byte offset 1024), leading byte offset
-// unused, layout type 1 (B128). One k step of 8 tf32 is 32 bytes further.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t a = smem_u32(tile);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// keep the compiler from moving accumulator reads or writes across wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, fp32) += A (64 x 8, tf32) B (8 x 128, tf32), both from
-// shared memory
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
-                                           uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, %64, %65, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// max into a float in global memory: non-negative values (sign bit clear)
-// order like signed integers, negative ones reversed like unsigned ones
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (!signbit(v)) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  }
-}
-
-// Prologue: W (cin, cout) -> W^T split into tf32 hi and lo, (cout, kp)
-// each, zero for k >= cin (exact: zeros add nothing to a dot product);
-// and out = -inf. Blocks of 32 x 8 threads over 32 x 32 tiles of W.
-__global__ void __launch_bounds__(256)
-split_weights_kernel(const float* __restrict__ w, int cin, int cout, int kp,
-                     float* __restrict__ w_hi, float* __restrict__ w_lo,
-                     float* __restrict__ out, size_t out_size) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32;
-  const int j0 = blockIdx.y * 32;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  for (int r = ty; r < 32; r += 8) {
-    const int k = k0 + r;
-    const int j = j0 + tx;
-    tile[r][tx] = (k < cin && j < cout) ? w[(size_t)k * cout + j] : 0.f;
-  }
-  __syncthreads();
-  for (int r = ty; r < 32; r += 8) {
-    const int j = j0 + r;
-    const int k = k0 + tx;
-    if (j < cout && k < kp) {
-      const float v = tile[tx][r];
-      const float hi = tf32_rna(v);
-      w_hi[(size_t)j * kp + k] = hi;
-      w_lo[(size_t)j * kp + k] = v - hi;
-    }
-  }
-  const size_t stride = (size_t)gridDim.x * gridDim.y * 256;
-  for (size_t i = (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * 256 +
-                  ty * 32 + tx;
-       i < out_size; i += stride) {
-    out[i] = -CUDART_INF_F;
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_maxpool_kernel(const __grid_constant__ CUtensorMap x_map,
@@ -299,48 +134,10 @@ mlp_maxpool_kernel(const __grid_constant__ CUtensorMap x_map,
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
       uint8_t* base = smem + st * STAGE_BYTES;
-      float4* x_hi = reinterpret_cast<float4*>(base + g * (X_BYTES / 2));
-      float4* x_lo =
-          reinterpret_cast<float4*>(base + X_BYTES + g * (X_BYTES / 2));
-      // the split is elementwise, so the swizzled layout carries over
-#pragma unroll
-      for (int i = 0; i < X_BYTES / 2 / 16 / 128; ++i) {
-        const float4 v = x_hi[t + 128 * i];
-        float4 h;
-        h.x = tf32_rna(v.x);
-        h.y = tf32_rna(v.y);
-        h.z = tf32_rna(v.z);
-        h.w = tf32_rna(v.w);
-        x_hi[t + 128 * i] = h;
-        x_lo[t + 128 * i] =
-            make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
-      }
-      // generic-proxy writes -> visible to wgmma (async proxy), then the
-      // warpgroup's own barrier
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      asm volatile("bar.sync %0, 128;" ::"r"(1 + g) : "memory");
-      const uint64_t da_hi = sw128_desc(x_hi);
-      const uint64_t da_lo = sw128_desc(x_lo);
-      const uint64_t db_hi = sw128_desc(base + 2 * X_BYTES);
-      const uint64_t db_lo = sw128_desc(base + 2 * X_BYTES + W_BYTES);
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-      // every k step of the chunk, also past kp: those read TMA's zeros (a
-      // branch here would make ptxas serialize the wgmma)
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
-        const uint64_t off = 2 * kk;  // 32 bytes, in 16-byte units
-        wgmma_tf32(acc, da_hi + off, db_hi + off);
-        wgmma_tf32(acc, da_hi + off, db_lo + off);
-        wgmma_tf32(acc, da_lo + off, db_hi + off);
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_acc(acc);
+      mma_chunk(acc, base, base + X_BYTES, base + 2 * X_BYTES,
+                base + 2 * X_BYTES + W_BYTES, g, t);
       mbar_arrive(&empty[st]);
     }
-    // accumulator layout: acc[4 j + 2 h + e] is row 16 warp + lane / 4 + 8 h,
-    // column 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 tile
     const int rows_left = n - s * BM - 64 * g - 16 * warp - lane / 4;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -379,66 +176,6 @@ mlp_maxpool_kernel(const __grid_constant__ CUtensorMap x_map,
     atomic_max_float(out + (size_t)b * cout + col, v + c[col]);
   }
 }
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda), looked up through the runtime's
-// entry-point query: the library links against nothing but the runtime
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
-// fp32 tensor map with 128-byte swizzle; dims and box innermost first,
-// strides in bytes for dims 1.. . Out-of-bounds elements read as zero.
-bool encode(CUtensorMap* map, const void* base, int rank,
-            const cuuint64_t* dims, const cuuint64_t* strides,
-            const cuuint32_t* box) {
-  const EncodeTiledFn fn = encode_tiled();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// makes `dev` the current device while it lives, then restores the caller's
-struct DeviceGuard {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceGuard(int dev) {
-    err = cudaGetDevice(&prev);
-    if (err != cudaSuccess || prev == dev) {
-      prev = -1;  // nothing to restore
-    } else {
-      err = cudaSetDevice(dev);
-    }
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 
@@ -482,34 +219,17 @@ extern "C" int p2s_mlp_maxpool(int dev, const void* x, int batch, int n,
     sms_of[dev] = sms;
   }
 
-  // split the point axis until the grid covers the SMs once
   const int col_tiles = (cout + BN - 1) / BN;
-  const int n_slabs = (n + BM - 1) / BM;
   const long long tiles = (long long)batch * col_tiles;
-  int splits = tiles >= sms ? 1
-                            : (int)std::min<long long>(
-                                  n_slabs, (sms + tiles - 1) / tiles);
-  const int per_split = (n_slabs + splits - 1) / splits;
-  splits = (n_slabs + per_split - 1) / per_split;
-  if (tiles * splits > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int per_split = 0;
+  const int splits = point_splits(sms, tiles, (n + BM - 1) / BM, &per_split);
+  if (splits == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   float* w_hi = static_cast<float*>(scratch);
   float* w_lo = w_hi + (size_t)cout * kp;
   float* out = w_lo + (size_t)cout * kp;
   CUtensorMap maps[3];
-  const cuuint64_t x_dims[3] = {(cuuint64_t)x_cols, (cuuint64_t)n,
-                                (cuuint64_t)batch};
-  const cuuint64_t x_strides[2] = {(cuuint64_t)x_cols * 4,
-                                   (cuuint64_t)x_cols * 4 * n};
-  const cuuint32_t x_box[3] = {BK, BM, 1};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)kp, (cuuint64_t)cout};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)kp * 4};
-  const cuuint32_t w_box[2] = {BK, BN};
-  if (!encode(&maps[0], x, 3, x_dims, x_strides, x_box) ||
-      !encode(&maps[1], w_hi, 2, w_dims, w_strides, w_box) ||
-      !encode(&maps[2], w_lo, 2, w_dims, w_strides, w_box)) {
+  if (!encode_ring_maps(maps, x, batch, n, x_cols, w_hi, w_lo, cout, kp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 

@@ -1,5 +1,5 @@
 // Register-tiled fp32 SIMT product from shared memory, shared by the port's
-// pointwise-layer kernels (chain_pool.cu, pooled_tail.cu).
+// pointwise-layer kernels (chain_head.cu, pooled_tail.cu).
 //
 // Activations are stored transposed in shared memory, [channel][point] with
 // row stride NPS, so a thread reads its TM rows of one channel as float4

@@ -29,8 +29,9 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
 
 
 def random_quaternion(generator: torch.Generator, shape=(),
-                      device: torch.device | str = "cpu") -> torch.Tensor:
-    """Uniform random unit quaternions (Shoemake's method), [w, x, y, z]."""
+                      device: torch.device | str = "cuda") -> torch.Tensor:
+    """Uniform random unit quaternions (Shoemake's method), [w, x, y, z],
+    on ``device`` (the card unless the caller asks for the CPU)."""
     u = torch.rand(tuple(shape) + (3,), generator=generator,
                    device=require_cuda(device))
     u1, u2, u3 = u[..., 0], u[..., 1], u[..., 2]
@@ -46,8 +47,9 @@ def random_quaternion(generator: torch.Generator, shape=(),
 
 
 def random_rotation(generator: torch.Generator, shape=(),
-                    device: torch.device | str = "cpu") -> torch.Tensor:
-    """Uniform random rotation matrices, shape (..., 3, 3)."""
+                    device: torch.device | str = "cuda") -> torch.Tensor:
+    """Uniform random rotation matrices, shape (..., 3, 3), on ``device``
+    (the card unless the caller asks for the CPU)."""
     return quat_to_rotmat(random_quaternion(generator, shape, device))
 
 

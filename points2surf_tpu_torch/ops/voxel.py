@@ -83,9 +83,10 @@ def _morton_order_host(vs: np.ndarray) -> np.ndarray:
 
 
 def grid_query_points(pts_ms: np.ndarray, vol_res: int, threshold_vs: int,
-                      device: torch.device | str = "cpu") -> np.ndarray:
+                      device: torch.device | str = "cuda") -> np.ndarray:
     """Near-surface voxel centers in model space, (Q, 3) float32 on the
-    host, Morton-ordered. The mask is computed on ``device``."""
+    host, Morton-ordered. The mask is computed on ``device`` (the card
+    unless the caller asks for the CPU)."""
     pts = torch.as_tensor(np.asarray(pts_ms)[:, :3], dtype=torch.float32,
                           device=require_cuda(device))
     mask = near_surface_mask(pts, pts.shape[0], vol_res, threshold_vs)

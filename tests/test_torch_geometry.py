@@ -51,13 +51,13 @@ def test_patch_radii_and_patch_space_match_jax(rng):
 
 def test_random_quaternion_unit_and_uniform():
     gen = torch.Generator().manual_seed(0)
-    q = tg.random_quaternion(gen, (20000,))
+    q = tg.random_quaternion(gen, (20000,), device="cpu")
     np.testing.assert_allclose(torch.linalg.vector_norm(q, dim=-1).numpy(),
                                1.0, atol=1e-5)
     # uniform on S^3: every component has mean 0 and variance 1/4
     np.testing.assert_allclose(q.mean(0).numpy(), 0.0, atol=0.02)
     np.testing.assert_allclose((q * q).mean(0).numpy(), 0.25, atol=0.01)
-    rot = tg.random_rotation(gen, (100,))
+    rot = tg.random_rotation(gen, (100,), device="cpu")
     eye = torch.matmul(rot, rot.transpose(1, 2))
     np.testing.assert_allclose(eye.numpy(), np.broadcast_to(np.eye(3),
                                                             eye.shape),
