@@ -14,8 +14,10 @@ decimation 4) and the fused train step (decimation 8, SGD with momentum):
    (``chain_head``, layers 1-2, and ``chain_pool``, layer 3 and the pool)
    at batch 64 and at the query batch 4096 (plain versions in row chunks
    there), with their times and the five chains' share of their bound;
-   ``pooled_tail`` on the train path; ``mlp_maxpool``, which no path
-   calls, at four encoder-tail shapes (``MLP_SHAPES``);
+   ``pooled_tail`` at the train path's three tail shapes (each run twice,
+   bit-identical), with the five tails' share of their bound;
+   ``mlp_maxpool``, which no path calls, at four encoder-tail shapes
+   (``MLP_SHAPES``);
 3. the query slice on the GPU against the same slice on the CPU, on the
    bundled cloud, with the same weights and injected random draws;
 4. query throughput at batch 4096 on the grid-256 near-surface queries,
@@ -24,8 +26,8 @@ decimation 4) and the fused train step (decimation 8, SGD with momentum):
 5. one fused train step on the GPU against the same step on the CPU in
    float64 at batch 64: same weights, momentum buffers, random draws and
    rotations;
-6. train throughput at batch 1000, with its stage split and
-   ``pooled_tail``'s launch count.
+6. train throughput at batch 1000, with its stage split,
+   ``pooled_tail``'s launch count and a ``torch.profiler`` summary.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -62,6 +64,7 @@ TRAIN_BATCH = 1000
 TRAIN_WARMUP = 3
 TRAIN_TIMED = 10
 TRAIN_SPLIT = 3
+TRAIN_PROFILE = 3
 SLICE_TRAIN_BATCH = 64
 KERNEL_SOURCES = ("chain_head", "chain_pool", "pooled_tail", "mlp_maxpool")
 # least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
@@ -92,6 +95,17 @@ def _events_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _card_state(tag: str) -> None:
+    """SM clock, power draw, temperature and the active clock-limit reasons
+    (a bit mask; 0 means none), to tell a throttled run from a slow one."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(f"[{tag}] card state: {(out.stdout or out.stderr).strip()}")
 
 
 def phase_device(torch):
@@ -170,6 +184,13 @@ def _tail_cost(b, n, cout=NET):
     """(FLOP, bytes) of the layer-3 kernel: 128 -> cout and the pool."""
     flop = 2.0 * b * n * 128 * cout
     nbytes = 4.0 * (b * n * 128 + 128 * cout + 2 * cout + b * cout)
+    return flop, nbytes
+
+
+def _pooled_tail_cost(b, n, cout=NET):
+    """(FLOP, bytes) of pooled_tail: 128 -> cout and six (b, cout) outputs."""
+    flop = 2.0 * b * n * 128 * cout
+    nbytes = 4.0 * (b * n * 128 + 128 * cout + cout + 6 * b * cout)
     return flop, nbytes
 
 
@@ -281,8 +302,9 @@ def phase_kernels(torch, device):
 
 
 def phase_tail_kernels(torch, device):
-    """pooled_tail at the five conv3-tail shapes of a batch-1000 train
-    forward (and a ragged case with ties), mlp_maxpool at MLP_SHAPES."""
+    """pooled_tail at the three conv3-tail shapes of a batch-1000 train
+    forward, a ragged case with ties and a ragged column tile (each run
+    twice, bit-identical), mlp_maxpool at MLP_SHAPES."""
     from points2surf_tpu_torch.ops.kernels.mlp_maxpool import (
         mlp_maxpool, mlp_maxpool_reference)
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
@@ -292,16 +314,23 @@ def phase_tail_kernels(torch, device):
     names = ("cmax", "amax", "cmin", "amin", "rsum", "rsq")
     tail = {"max_abs_err": 0.0}
     times = {}
-    for b, n in [(TRAIN_BATCH, n) for n, _ in TAIL_SITES] + [(37, 129)]:
+    cases = [(TRAIN_BATCH, n, NET) for n, _ in TAIL_SITES] + [
+        (37, 129, NET), (64, 300, 1000)]
+    for b, n, cout in cases:
         # post-relu activations, as conv3 receives them
         x = torch.relu(torch.randn((b, n, 128), generator=gen)).to(device)
-        if b == 37:
+        if b != TRAIN_BATCH:
             x[:, 100:] = x[:, :1]  # tied rows: the first index must win
-        w = (torch.randn((128, NET), generator=gen) / 128 ** 0.5).to(device)
-        bias = (torch.randn((NET,), generator=gen) * 0.1).to(device)
+        w = (torch.randn((128, cout), generator=gen) / 128 ** 0.5).to(device)
+        bias = (torch.randn((cout,), generator=gen) * 0.1).to(device)
         got = pooled_tail_reductions(x, w, bias)
+        again = pooled_tail_reductions(x, w, bias)
         want = pooled_tail_reductions_reference(x, w, bias)
         torch.cuda.synchronize()
+        for name, g, a in zip(names, got, again):
+            check(torch.equal(g, a), f"pooled_tail {name} B={b} n={n} "
+                                     f"C={cout}: a rerun differs")
+        del again
         bad, err = 0, 0.0
         for name, g, r in zip(names, got, want):
             if g.dtype == torch.int32:
@@ -318,29 +347,37 @@ def phase_tail_kernels(torch, device):
             e, nb = _close(at, v, "pooled_tail value at arg")
             err, bad = max(err, e), bad + nb
         del c
-        if b == 37:
+        if b != TRAIN_BATCH:
             check(bool((got[1] < 100).all()) and bool((got[3] < 100).all()),
                   "pooled_tail: a tie did not keep the first index")
         tail["max_abs_err"] = max(tail["max_abs_err"], err)
-        msg = (f"[kernel] pooled_tail B={b} n={n} 128->{NET}: max_abs_err "
-               f"{err:.3e} (rtol 1e-4, atol 1e-4*max|ref|), {bad} outside")
+        msg = (f"[kernel] pooled_tail B={b} n={n} 128->{cout}: max_abs_err "
+               f"{err:.3e} (rtol 1e-4, atol 1e-4*max|ref|), {bad} outside, "
+               f"rerun bit-identical")
         if b == TRAIN_BATCH:
             t_k = _events_ms(torch, lambda: pooled_tail_reductions(
                 x, w, bias), 10)
             t_p = _events_ms(torch, lambda: pooled_tail_reductions_reference(
                 x, w, bias), 5)
             times[n] = (t_k, t_p)
-            flop = 2.0 * b * n * 128 * NET
+            flop, _ = _pooled_tail_cost(b, n)
             msg += (f"; kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s),"
                     f" plain {t_p:.4f} ms")
         print(msg)
         check(bad == 0, f"pooled_tail disagrees with its plain version: "
-                        f"B={b} n={n}")
+                        f"B={b} n={n} C={cout}")
         del x, got
     tail["ms"] = sum(cnt * times[n][0] for n, cnt in TAIL_SITES)
     tail["plain_ms"] = sum(cnt * times[n][1] for n, cnt in TAIL_SITES)
+    tail["cost"] = [sum(cnt * _pooled_tail_cost(TRAIN_BATCH, n)[i]
+                        for n, cnt in TAIL_SITES) for i in (0, 1)]
+    bound, _ = _bound(*tail["cost"])
+    _card_state("kernel")
     print(f"[kernel] five conv3 tails of one B={TRAIN_BATCH} train forward: "
-          f"kernel {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms")
+          f"kernel {tail['ms']:.4f} ms, "
+          f"{tail['cost'][0] / tail['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{bound / tail['ms']:.1%} of the {bound:.3f} ms bound; plain "
+          f"{tail['plain_ms']:.4f} ms")
 
     mlp = {"max_abs_err": 0.0}
     dgen = torch.Generator(device=device).manual_seed(SEED + 4)
@@ -517,6 +554,7 @@ def phase_throughput(torch, device, cfg, model, pts_pad, n, queries):
     print(f"[main] chain_pool launches {launches['chain_pool']}, chain_head "
           f"launches {launches['chain_head']} over {n_batches} batches "
           f"(expected {5 * n_batches} each)")
+    _card_state("main")
     print(f"[main] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for name, count in launches.items():
@@ -805,6 +843,9 @@ def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     check(launches == 5 * n_steps,
           "pooled_tail was not launched five times per train step")
+    _card_state("train")
+    _profile(torch, lambda i: steps.train_step_fused(
+        pts_t, batch_queries(i), n, gt, gen), TRAIN_PROFILE, "train")
     return launches
 
 
@@ -865,11 +906,6 @@ def main() -> int:
           f"mlp_maxpool launches on the two paths: {mlp_launches} "
           "(no caller in either package)")
     q = kern[BATCH]
-    tail_flop = sum(cnt * 2.0 * TRAIN_BATCH * n * 128 * NET
-                    for n, cnt in TAIL_SITES)
-    tail_bytes = sum(cnt * 4.0 * (TRAIN_BATCH * n * 128 + 128 * NET + NET
-                                  + 6 * TRAIN_BATCH * NET)
-                     for n, cnt in TAIL_SITES)
     b, n, cin, cout = MLP_SHAPES[1]
     mlp_flop = 2.0 * b * n * cin * cout
     mlp_bytes = 4.0 * (b * n * cin + cin * cout + cout + b * cout)
@@ -885,8 +921,7 @@ def main() -> int:
          launches["chain_pool"], kern["err"]["chain_pool"], q["tail"],
          q["tail_plain"], *q["tail_cost"]),
         ("pooled_tail", "pooled_tail.cu", "train_tail.py:138", tail_launches,
-         tail["max_abs_err"], tail["ms"], tail["plain_ms"], tail_flop,
-         tail_bytes),
+         tail["max_abs_err"], tail["ms"], tail["plain_ms"], *tail["cost"]),
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52", mlp_launches,
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
          mlp_bytes),

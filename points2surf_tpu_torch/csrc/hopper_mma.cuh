@@ -1,9 +1,9 @@
 // Hopper machinery shared by the port's pooled-layer kernels (mlp_maxpool.cu,
-// chain_pool.cu): TMA loads and mbarriers, the 3xTF32 wgmma product of one
-// K chunk on 128-byte swizzled K-major tiles, the W^T hi/lo prologue, and
-// the host's tensor maps and grid split.
+// chain_pool.cu, pooled_tail.cu): TMA loads and mbarriers, the 3xTF32 wgmma
+// product of one K chunk on 128-byte swizzled K-major tiles, the W^T hi/lo
+// prologue, and the host's tensor maps and grid split.
 //
-// Both kernels: a block owns one column tile of BN outputs and walks
+// Each kernel: a block owns one column tile of BN outputs and walks
 // 128-point slabs of one batch row. A slab arrives as K chunks of 32 fp32
 // (one 128-byte row) of the activation (BM x BK, by TMA from a 3-D (B, n, K)
 // tensor map, so a slab never reads the next row's points; rows past n and

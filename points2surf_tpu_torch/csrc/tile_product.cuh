@@ -1,5 +1,5 @@
-// Register-tiled fp32 SIMT product from shared memory, shared by the port's
-// pointwise-layer kernels (chain_head.cu, pooled_tail.cu).
+// Register-tiled fp32 SIMT product from shared memory, used by the port's
+// SIMT pointwise-layer kernel (chain_head.cu).
 //
 // Activations are stored transposed in shared memory, [channel][point] with
 // row stride NPS, so a thread reads its TM rows of one channel as float4

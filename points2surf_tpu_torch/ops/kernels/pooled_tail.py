@@ -9,8 +9,8 @@ the point axis, without keeping c:
 
 (max and its first arg index, min and its first arg index, sum, sum of
 squares; arg indices int32). A CPU tensor takes the plain PyTorch version; a
-CUDA tensor launches the kernel, built with ``nvcc`` at its first use, or
-raises.
+CUDA tensor launches the kernel (3xTF32 ``wgmma`` fed by TMA), built with
+``nvcc`` at its first use, or raises.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def pooled_tail_reductions(x: torch.Tensor, w: torch.Tensor,
 
     x (B, n, Cin) float32, w (Cin, C), b (C,). Returns (cmax, amax, cmin,
     amin, rsum, rsq), each (B, C); ties take the first index. On CUDA the
-    kernel takes Cin == 128, any B and any n >= 1.
+    kernel takes Cin == 128 and a 16-byte aligned x, any B and any n >= 1.
     """
     _check(x, w, b)
     if x.device.type == "cpu":
@@ -62,20 +62,23 @@ def pooled_tail_reductions(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"pooled_tail_reductions has no kernel for "
                          f"{x.device}")
     bsz, n, cin = x.shape
-    if cin != KERNEL_CIN:
-        raise ValueError(f"CUDA pooled_tail_reductions takes Cin == "
-                         f"{KERNEL_CIN}, got {cin}")
+    if cin != KERNEL_CIN or x.data_ptr() % 16:
+        raise ValueError(f"CUDA pooled_tail_reductions takes a 16-byte "
+                         f"aligned x with Cin == {KERNEL_CIN}, got "
+                         f"{tuple(x.shape)}")
     c = w.shape[1]
+    # W^T split into tf32 hi and lo parts, (C, 128) each
+    scratch = torch.empty(2 * c * cin, device=x.device, dtype=torch.float32)
     f32 = torch.empty((4, bsz, c), device=x.device, dtype=torch.float32)
     i32 = torch.empty((2, bsz, c), device=x.device, dtype=torch.int32)
     cmax, cmin, rsum, rsq = f32
     amax, amin = i32
-    with torch.cuda.device(x.device):
-        rc = _library().p2s_pooled_tail(
-            x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
-            cmax.data_ptr(), amax.data_ptr(), cmin.data_ptr(),
-            amin.data_ptr(), rsum.data_ptr(), rsq.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.device.index
+    rc = _library().p2s_pooled_tail(
+        dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
+        scratch.data_ptr(), cmax.data_ptr(), amax.data_ptr(),
+        cmin.data_ptr(), amin.data_ptr(), rsum.data_ptr(), rsq.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev))
     check_launch("pooled_tail", rc)
     pooled_tail_reductions.launches += 1
     return cmax, amax, cmin, amin, rsum, rsq
@@ -86,6 +89,6 @@ pooled_tail_reductions.launches = 0
 
 def _library():
     return load_library("pooled_tail", (
-        ("p2s_pooled_tail", (VP, CI, CI, CI, VP, VP, CI,
+        ("p2s_pooled_tail", (CI, VP, CI, CI, CI, VP, VP, CI, VP,
                              VP, VP, VP, VP, VP, VP, VP)),
     ))

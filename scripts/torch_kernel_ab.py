@@ -6,10 +6,12 @@ compare two checkouts on the same card.
 
 Imports ``points2surf_tpu_torch`` from ``--root`` (its kernels build there),
 runs ``chain_pool`` (max pool) at the query forward's five call sites at
-batch 4096 and ``mlp_maxpool`` at four encoder-tail shapes on seeded
-inputs, prints each call's mean device time (CUDA events) and saves the
-outputs. With ``--compare`` it also prints, per case, whether the outputs
-are bit-identical to the other file's and their max abs difference. Run the
+batch 4096, ``mlp_maxpool`` at four encoder-tail shapes and
+``pooled_tail`` at the train step's three conv3-tail shapes at batch 1000
+on seeded inputs (``--kernels`` picks some of the three), prints each
+call's mean device time (CUDA events) and saves the outputs. With
+``--compare`` it also prints, per case, whether the outputs are
+bit-identical to the other file's and their max abs difference. Run the
 two checkouts in turns (old, new, new, old) in one call on one card.
 """
 
@@ -24,6 +26,9 @@ BATCH = 4096
 CHAIN_SITES = ((3, 1300, 1), (64, 1000, 2), (64, 300, 2))
 MLP_SHAPES = ((16, 256, 128, 512), (64, 300, 128, NET),
               (1000, 300, 128, NET), (1000, 1000, 128, NET))
+TRAIN_BATCH = 1000
+TAIL_SITES = ((1300, 1), (1000, 2), (300, 2))
+TAIL_NAMES = ("cmax", "amax", "cmin", "amin", "rsum", "rsq")
 
 
 def _events_ms(torch, fn, iters: int) -> float:
@@ -39,26 +44,9 @@ def _events_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", required=True)
-    ap.add_argument("--out", required=True)
-    ap.add_argument("--compare")
-    args = ap.parse_args()
-    sys.path.insert(0, args.root)
-    import torch
-
+def _chain_pool(torch, dev, root, outs):
     from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool
-    from points2surf_tpu_torch.ops.kernels.mlp_maxpool import mlp_maxpool
 
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
-        return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    dev = torch.device("cuda", 0)
-    outs = {}
     gen = torch.Generator(device=dev).manual_seed(0)
     chains_ms = 0.0
     for cin, n, count in CHAIN_SITES:
@@ -74,10 +62,16 @@ def main() -> int:
         outs[key] = chain_pool(x, layers).cpu()
         ms = _events_ms(torch, lambda: chain_pool(x, layers), 5)
         chains_ms += count * ms
-        print(f"{args.root}: {key} {ms:.4f} ms")
+        print(f"{root}: {key} {ms:.4f} ms")
         del x
-    print(f"{args.root}: five chains of one batch-{BATCH} forward "
+    print(f"{root}: five chains of one batch-{BATCH} forward "
           f"{chains_ms:.4f} ms")
+
+
+def _mlp_maxpool(torch, dev, root, outs):
+    from points2surf_tpu_torch.ops.kernels.mlp_maxpool import mlp_maxpool
+
+    gen = torch.Generator(device=dev).manual_seed(1)
     for b, n, cin, cout in MLP_SHAPES:
         x = torch.randn((b, n, cin), generator=gen, device=dev)
         w = torch.randn((cin, cout), generator=gen, device=dev) * 0.1
@@ -86,12 +80,61 @@ def main() -> int:
         outs[key] = mlp_maxpool(x, w, c).cpu()
         iters = 200 if b * n < 100_000 else 5
         ms = _events_ms(torch, lambda: mlp_maxpool(x, w, c), iters)
-        print(f"{args.root}: {key} {ms:.4f} ms")
+        print(f"{root}: {key} {ms:.4f} ms")
+
+
+def _pooled_tail(torch, dev, root, outs):
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tails_ms = 0.0
+    for n, count in TAIL_SITES:
+        x = torch.relu(torch.randn((TRAIN_BATCH, n, 128), generator=gen,
+                                   device=dev))
+        w = torch.randn((128, NET), generator=gen, device=dev) / 128 ** 0.5
+        b = torch.randn((NET,), generator=gen, device=dev) * 0.1
+        key = f"pooled_tail {TRAIN_BATCH}x{n}x128->{NET}"
+        for name, o in zip(TAIL_NAMES, pooled_tail_reductions(x, w, b)):
+            outs[f"{key} {name}"] = o.cpu()
+        ms = _events_ms(torch, lambda: pooled_tail_reductions(x, w, b), 10)
+        tails_ms += count * ms
+        print(f"{root}: {key} {ms:.4f} ms")
+        del x
+    print(f"{root}: five conv3 tails of one batch-{TRAIN_BATCH} train "
+          f"step {tails_ms:.4f} ms")
+
+
+KERNELS = {"chain_pool": _chain_pool, "mlp_maxpool": _mlp_maxpool,
+           "pooled_tail": _pooled_tail}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--compare")
+    ap.add_argument("--kernels", nargs="+", choices=sorted(KERNELS),
+                    default=list(KERNELS))
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    outs = {}
+    for name in args.kernels:
+        KERNELS[name](torch, dev, args.root, outs)
     torch.save(outs, args.out)
     if args.compare:
         other = torch.load(args.compare)
         for key, got in outs.items():
-            diff = float((got - other[key]).abs().max())
+            diff = float((got.double() - other[key].double()).abs().max())
             print(f"{key}: bit-identical {torch.equal(got, other[key])}, "
                   f"max abs diff {diff:.3e}")
     return 0

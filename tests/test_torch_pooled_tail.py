@@ -171,14 +171,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(64, 1300), (64, 300), (37, 129), (5, 1)])
-def test_pooled_tail_kernel_matches_plain(cuda_device, b, n):
+def _card_inputs(device, b, n, c, kind="random"):
     # no conftest fixtures: this runs on the GPU host with --noconftest
     rng = np.random.RandomState(0)
-    x, w, bias = _inputs(rng, b, n, 128, 1024)
+    x, w, bias = _inputs(rng, b, n, 128, c)
+    if kind == "negative":
+        # every product x w < 0: TMA's zero rows past n would give c = b,
+        # which wins the max, if they were not masked
+        x, w = np.abs(x), -np.abs(w) - 1e-3
     x[:, n // 2:] = x[:, :1]  # duplicated rows: ties keep the first index
-    t = [torch.from_numpy(a).to(cuda_device) for a in (x, w, bias)]
+    return [torch.from_numpy(a).to(device) for a in (x, w, bias)]
+
+
+# (b, n, C, kind): the train tails at batch 64 (n 1300, 1000, 300), ragged
+# n (one past a slab, a single point, one short of a slab, exactly one
+# slab), a ragged column tile (C 1000), all-negative products
+CARD_CASES = [(64, 1300, 1024, "random"), (64, 1000, 1024, "random"),
+              (64, 300, 1024, "random"), (37, 129, 1024, "random"),
+              (5, 1, 1024, "random"), (3, 127, 1024, "random"),
+              (2, 128, 1024, "random"), (37, 129, 1000, "random"),
+              (64, 300, 1000, "negative"), (5, 1, 1024, "negative"),
+              (3, 127, 1000, "negative")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,kind", CARD_CASES)
+def test_pooled_tail_kernel_matches_plain(cuda_device, b, n, c, kind):
+    t = _card_inputs(cuda_device, b, n, c, kind)
     before = pooled_tail_reductions.launches
     got = pooled_tail_reductions(*t)
     torch.cuda.synchronize()
@@ -201,8 +220,34 @@ def test_pooled_tail_kernel_matches_plain(cuda_device, b, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 1300), (3, 777), (64, 300)])
+def test_pooled_tail_kernel_is_deterministic(cuda_device, b, n):
+    # one block holds all of a row's points for its columns and reduces
+    # them in a fixed order, the sums included
+    t = _card_inputs(cuda_device, b, n, 1024, "negative")
+    got = pooled_tail_reductions(*t)
+    again = pooled_tail_reductions(*t)
+    torch.cuda.synchronize()
+    for name, g, a in zip(("cmax", "amax", "cmin", "amin", "rsum", "rsq"),
+                          got, again):
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
 def test_pooled_tail_kernel_raises_on_other_cin(cuda_device):
     x = torch.zeros((2, 10, 64), device=cuda_device)
     w = torch.zeros((64, 32), device=cuda_device)
     with pytest.raises(ValueError):
         pooled_tail_reductions(x, w, torch.zeros(32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_pooled_tail_kernel_raises_on_misaligned_x(cuda_device):
+    # a contiguous view 4 bytes into its storage: TMA needs 16-byte bases
+    x = torch.zeros(2 * 10 * 128 + 1, device=cuda_device)[1:].view(2, 10, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    w = torch.zeros((128, 32), device=cuda_device)
+    before = pooled_tail_reductions.launches
+    with pytest.raises(ValueError):
+        pooled_tail_reductions(x, w, torch.zeros(32, device=cuda_device))
+    assert pooled_tail_reductions.launches == before
