@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (``points2surf_tpu_torch``) at the full width
+Drives the port's three paths (``points2surf_tpu_torch``) at the full width
 of ``bench.py``'s model (shared QSTN, net 1024, 300 patch points, 1000
 sub-sample points) with seeded random weights: the SDF query (candidate
-decimation 4) and the fused train step (decimation 8, SGD with momentum):
+decimation 4), the fused train step (decimation 8, SGD with momentum) and
+the reconstruction of a 256^3 mesh:
 
 1. device: card name and power limit, torch/CUDA versions, the kernels'
    build (one ``nvcc`` per source, in parallel);
@@ -27,7 +28,16 @@ decimation 4) and the fused train step (decimation 8, SGD with momentum):
    float64 at batch 64: same weights, momentum buffers, random draws and
    rotations;
 6. train throughput at batch 1000, with its stage split,
-   ``pooled_tail``'s launch count and a ``torch.profiler`` summary.
+   ``pooled_tail``'s launch count and a ``torch.profiler`` summary;
+7. seconds per 256^3 mesh by ``bench.py``'s recipe, through the port:
+   grid-256 queries, the query sweep at batch 4096, a proxy sign over the
+   sweep's magnitudes, the volume (splat, sign propagation) on the card,
+   an f32 fetch and the C++ marching tetrahedra, split by stage, with the
+   propagation rounds, vertex and face counts, peak memory and the chain
+   kernels' launch counts; then the GPU volume against the CPU volume bit
+   for bit (seed filter 0 and 4), a watertight mesh, a byte-identical
+   second marching, and the single-shape and directory entry points
+   writing the same mesh from the card.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -66,6 +76,12 @@ TRAIN_TIMED = 10
 TRAIN_SPLIT = 3
 TRAIN_PROFILE = 3
 SLICE_TRAIN_BATCH = 64
+# the mesh: bench.py's bench_mesh (grid 256, epsilon 3, sigma 5, certainty
+# 13), one warm-up pass and MESH_PASSES timed passes
+MESH_GRID = 256
+MESH_SIGMA = 5
+MESH_CERTAINTY = 13
+MESH_PASSES = 2
 KERNEL_SOURCES = ("chain_head", "chain_pool", "pooled_tail", "mlp_maxpool")
 # least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
 # peak, and HBM3 at 3.35 TB/s (H100 SXM data sheet)
@@ -121,20 +137,25 @@ def phase_device(torch):
           f"capability {torch.cuda.get_device_capability(0)}")
     from concurrent.futures import ThreadPoolExecutor
 
+    from points2surf_tpu_torch.ops import marching_native
     from points2surf_tpu_torch.ops.kernels import build
     from points2surf_tpu_torch.ops.kernels import chain_pool as cp
     from points2surf_tpu_torch.ops.kernels import mlp_maxpool as mm
     from points2surf_tpu_torch.ops.kernels import pooled_tail as pt
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as ex:
+        marching = ex.submit(marching_native.build_library)
         built = list(ex.map(build.build_library, KERNEL_SOURCES))
+        marching_path, _ = marching.result()
     cp._head_library()
     cp._tail_library()
     pt._library()
     mm._library()
+    marching_native._library()
     print(f"[device] {len(built)} kernel sources built in parallel + loaded "
-          f"in {time.perf_counter() - t0:.3f} s")
+          f"in {time.perf_counter() - t0:.3f} s; the marching copy (g++ "
+          f"-fopenmp) beside them -> {os.path.relpath(marching_path, ROOT)}")
     for name, (path, log) in zip(KERNEL_SOURCES, built):
         print(f"[device] {name} -> {os.path.relpath(path, ROOT)}")
         for line in log.splitlines():
@@ -849,6 +870,180 @@ def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
     return launches
 
 
+def _watertight(np, faces) -> bool:
+    """Every undirected edge of the mesh belongs to exactly two faces."""
+    e = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                faces[:, [2, 0]]]), axis=1)
+    _, counts = np.unique(e[:, 0] * (int(faces.max()) + 1) + e[:, 1],
+                          return_counts=True)
+    return bool((counts == 2).all())
+
+
+def phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n):
+    """Seconds per 256^3 mesh by bench.py's recipe (bench_mesh), through the
+    port: grid-256 queries, the query sweep at batch BATCH (the last batch
+    padded with its first query), the proxy sign over the sweep's
+    magnitudes (random weights predict one sign), the volume on the card,
+    an f32 fetch and the C++ marching. One warm-up pass, MESH_PASSES timed
+    passes, the faster reported. Then: the GPU volume equals the CPU volume
+    bit for bit (seed filter 0 and 4), the mesh is watertight, marching
+    reruns byte-identically, and the single-shape and directory entry
+    points write the same mesh from the card."""
+    import tempfile
+
+    from points2surf_tpu_torch.infer import meshing
+    from points2surf_tpu_torch.infer.query import (
+        drain_batched_results, make_sdf_query_fn)
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.marching_cubes import extract_isosurface
+    from points2surf_tpu_torch.ops.voxel import grid_query_points
+
+    fn = make_sdf_query_fn(model, OUTPUTS, cfg, fixed_radius=False)
+    pts_t = torch.from_numpy(pts_pad).to(device)
+    center = pts.mean(0)
+    r_mean = float(np.linalg.norm(pts - center, axis=1).mean())
+    args = (MESH_GRID, MESH_SIGMA, MESH_CERTAINTY)
+
+    def one_mesh(i):
+        gen = torch.Generator(device=device).manual_seed(SEED + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        queries = grid_query_points(pts, MESH_GRID, 3, device=device)
+        t1 = time.perf_counter()
+        nq = len(queries)
+        q_all = torch.from_numpy(queries).to(device)
+        pending = []
+        for s in range(0, nq, BATCH):
+            q = q_all[s:s + BATCH]
+            if len(q) < BATCH:
+                q = torch.cat([q, q[:1].expand(BATCH - len(q), 3)])
+            pending.append(fn(pts_t, q, n, gen))
+        dists = drain_batched_results(pending, nq)
+        dists = np.sign(
+            r_mean - np.linalg.norm(queries - center, axis=1)
+        ).astype(np.float32) * np.maximum(np.abs(dists), 1e-4)
+        t2 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        stats = {}
+        q_dev = torch.from_numpy(queries).to(device)
+        d_dev = torch.from_numpy(dists).to(device)
+        ev[0].record()
+        vol_dev = meshing._build_volume(q_dev, d_dev, nq, *args, 0, stats)
+        ev[1].record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        vol = vol_dev.cpu().numpy()
+        t4 = time.perf_counter()
+        v, f = extract_isosurface(vol, 0.0)
+        t5 = time.perf_counter()
+        r = {"total": t5 - t0, "grid": t1 - t0, "sweep": t2 - t1,
+             "volume": t3 - t2, "volume_events": ev[0].elapsed_time(ev[1]),
+             "fetch": t4 - t3, "marching": t5 - t4, "rounds": stats["rounds"],
+             "queries": nq, "batches": len(pending), "verts": len(v),
+             "faces": len(f),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        return r, queries, dists, vol, v, f
+
+    chain_pool.launches = 0
+    chain_head.launches = 0
+    runs = []
+    for i in range(1 + MESH_PASSES):
+        r, queries, dists, vol, v, f = one_mesh(i)
+        tag = "warm-up" if i == 0 else f"pass {i}"
+        print(f"[mesh] {tag}: {r['total']:.3f} s per {MESH_GRID}^3 mesh = "
+              f"grid queries {r['grid']:.3f} + sweep {r['sweep']:.3f} "
+              f"({r['queries']} queries, {r['batches']} batches of {BATCH}) "
+              f"+ volume {r['volume']:.3f} (device {r['volume_events']:.1f} "
+              f"ms by CUDA events, {r['rounds']} propagation rounds) + "
+              f"fetch {r['fetch']:.3f} + marching {r['marching']:.3f}; "
+              f"{r['verts']} vertices, {r['faces']} faces; peak "
+              f"{r['peak_gib']:.3f} GiB")
+        if i:
+            runs.append(r)
+    launches = {"chain_pool": chain_pool.launches,
+                "chain_head": chain_head.launches}
+    best = min(runs, key=lambda r: r["total"])
+    print(f"[mesh] {best['total']:.3f} s per {MESH_GRID}^3 mesh (faster of "
+          f"{MESH_PASSES} timed passes); chain_pool launches "
+          f"{launches['chain_pool']}, chain_head launches "
+          f"{launches['chain_head']} over {1 + MESH_PASSES} meshes (expected "
+          f"{5 * best['batches'] * (1 + MESH_PASSES)} each)")
+    _card_state("mesh")
+    for name, count in launches.items():
+        check(count == 5 * best["batches"] * (1 + MESH_PASSES),
+              f"{name} was not launched five times per sweep batch")
+    check(len(v) > 0 and len(f) > 0, "marching produced no surface")
+    check(bool(np.isfinite(v).all()), "non-finite mesh vertices")
+    check(_watertight(np, f), "the mesh is not watertight")
+    v2, f2 = extract_isosurface(vol, 0.0)
+    same = v2.tobytes() == v.tobytes() and f2.tobytes() == f.tobytes()
+    print(f"[mesh] watertight (every edge in two faces); a second marching "
+          f"of the volume byte-identical: {same}")
+    check(same, "a second marching of the same volume differs")
+
+    q_dev = torch.from_numpy(queries).to(device)
+    d_dev = torch.from_numpy(dists).to(device)
+    _profile(torch, lambda i: meshing._build_volume(
+        q_dev, d_dev, len(queries), *args), 1, "mesh volume")
+    cpu = torch.device("cpu")
+    for sf in (0, 4):
+        t0 = time.perf_counter()
+        stats_c, stats_g = {}, {}
+        want = meshing._build_volume(torch.from_numpy(queries),
+                                     torch.from_numpy(dists), len(queries),
+                                     *args, sf, stats_c)
+        t_cpu = time.perf_counter() - t0
+        got = meshing._build_volume(q_dev, d_dev, len(queries), *args, sf,
+                                    stats_g).to(cpu)
+        equal = torch.equal(got, want)
+        print(f"[mesh] seed_filter {sf}: GPU volume equals the CPU volume bit "
+              f"for bit: {equal} ({stats_g['rounds']} rounds on the GPU, "
+              f"{stats_c['rounds']} on the CPU; CPU build {t_cpu:.2f} s on "
+              f"{torch.get_num_threads()} threads)")
+        check(equal, f"GPU and CPU volumes differ (seed_filter {sf})")
+        if sf == 0:
+            check(torch.equal(got, torch.from_numpy(vol)),
+                  "the timed pass's volume differs from a rebuild")
+    del q_dev, d_dev
+
+    with tempfile.TemporaryDirectory() as tmp:
+        single = os.path.join(tmp, "single.ply")
+        t0 = time.perf_counter()
+        ok = meshing.implicit_surface_to_mesh(
+            dists, queries, os.path.join(tmp, "single.off"), single, *args,
+            device=device)
+        t_single = time.perf_counter() - t0
+        check(ok and os.path.getsize(single) > 0
+              and os.path.getsize(os.path.join(tmp, "single.off")) > 0,
+              "implicit_surface_to_mesh wrote no mesh")
+        dirs = [os.path.join(tmp, d) for d in ("dist", "pts", "vol", "mesh")]
+        for d in dirs[:2]:
+            os.makedirs(d)
+        for name, dist in (("shape", dists),
+                           ("zeros", np.zeros_like(dists))):
+            np.save(os.path.join(dirs[0], f"{name}.xyz.npy"), dist)
+            np.save(os.path.join(dirs[1], f"{name}.xyz.npy"), queries)
+        t0 = time.perf_counter()
+        meshing.implicit_surface_to_mesh_directory(
+            *dirs, *args, seed_filter=0, device=device)
+        t_dir = time.perf_counter() - t0
+        written = sorted(os.listdir(dirs[3]))
+        check(written == ["shape.ply"],
+              f"the directory driver wrote {written}, not one mesh")
+        with open(single, "rb") as a, open(os.path.join(
+                dirs[3], "shape.ply"), "rb") as b:
+            same = a.read() == b.read()
+        print(f"[mesh] implicit_surface_to_mesh on the card wrote .ply and "
+              f".off ({t_single:.2f} s with the debug OFF); the directory "
+              f"driver wrote {written} ({t_dir:.2f} s, all-zeros shape "
+              f"skipped), byte-identical to the single path's: {same}")
+        check(same, "the directory driver's mesh differs from the single "
+                    "path's")
+    return best, launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -902,6 +1097,7 @@ def main() -> int:
     tail_launches = phase_train_throughput(torch, np, device, model, pts_pad,
                                            n, queries)
     mlp_launches += mlp_maxpool.launches
+    phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the two paths: {mlp_launches} "
           "(no caller in either package)")

@@ -41,31 +41,41 @@ def _source_tag(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` for sm_90a. Returns (library path, compiler
-    log); an existing build of the same sources is reused. Safe to call for
-    several sources at once from threads (one ``nvcc`` each)."""
-    source = CSRC / f"{name}.cu"
-    out_dir = BUILD_DIR / f"{name}-{_source_tag(source)}"
-    lib = out_dir / f"libp2s_{name}.so"
+def compile_library(out_dir: Path, lib_name: str, cmd: list[str],
+                    what: str) -> tuple[Path, str]:
+    """Run the compiler command ``cmd`` with ``-o <temporary file>`` appended
+    and move the result to ``out_dir/lib_name`` in one rename, unless that
+    library exists already. Returns (library path, compiler log); raises
+    with the log if the compiler fails. Safe to call from several threads
+    or processes at once (each writes its own temporary file)."""
+    lib = out_dir / lib_name
     log = out_dir / "build.log"
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(cmd + ["-o", tmp], capture_output=True, text=True)
     text = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source.name} "
+        raise RuntimeError(f"{cmd[0]} failed on {what} "
                            f"({proc.returncode}):\n{text}")
     log.write_text(text)
     os.replace(tmp, lib)
     return lib, text
+
+
+def build_library(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` for sm_90a. Returns (library path, compiler
+    log); an existing build of the same sources is reused. Safe to call for
+    several sources at once from threads (one ``nvcc`` each)."""
+    source = CSRC / f"{name}.cu"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+           str(source)]
+    return compile_library(BUILD_DIR / f"{name}-{_source_tag(source)}",
+                           f"libp2s_{name}.so", cmd, source.name)
 
 
 VP, CI = ctypes.c_void_p, ctypes.c_int

@@ -1,8 +1,11 @@
-"""Reconstruction query set (counterpart of the query-set half of
-``points2surf_tpu/ops/voxel.py``): voxelize the cloud, grow it by a box
-filter, and list the near-surface voxel centers in Morton order.
+"""Volumetric SDF ops (counterpart of ``points2surf_tpu/ops/voxel.py``).
 
-Splatting and sign propagation come with the volume slice.
+The reconstruction query set (voxelize the cloud, grow it by a box filter,
+list the near-surface voxel centers in Morton order) and the volume that
+marching reads (splat the query distances, drop isolated wrong-sign seeds,
+propagate signs). Every box filter is three banded fp32 matmuls, exact on
+the integer sign and occupancy fields, so these ops give the same bits on
+the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -93,3 +96,76 @@ def grid_query_points(pts_ms: np.ndarray, vol_res: int, threshold_vs: int,
     vs = np.stack(np.nonzero(mask.cpu().numpy()), axis=1)
     vs = vs[_morton_order_host(vs)].astype(np.float32)
     return (((vs + 0.5) / vol_res) * 2.0 - 1.0).astype(np.float32)
+
+
+def splat_to_volume(pos_ms: torch.Tensor, val: torch.Tensor, n_valid,
+                    vol_res: int) -> torch.Tensor:
+    """Scatter SDF samples into a zero-initialized (res, res, res) float32
+    volume (sdf.py:82-111).
+
+    Grid-generated query points hit each voxel at most once, so the sum is a
+    plain scatter (the reference's closest-to-center tie-break degenerates
+    to first-wins, sdf.py:93-94). Rows >= n_valid write 0, a no-op value.
+    """
+    ids = model_space_to_volume_space(pos_ms, vol_res)
+    flat = (ids[:, 0] * vol_res + ids[:, 1]) * vol_res + ids[:, 2]
+    valid = torch.arange(pos_ms.shape[0], device=pos_ms.device) < n_valid
+    v = torch.where(valid, val.to(torch.float32), 0.0)
+    vol = torch.zeros(vol_res ** 3, dtype=torch.float32, device=pos_ms.device)
+    vol.index_put_((flat,), v, accumulate=True)
+    return vol.reshape(vol_res, vol_res, vol_res)
+
+
+def filter_seed_signs(vol: torch.Tensor, size: int = 3,
+                      threshold: int = 4) -> torch.Tensor:
+    """Zero out seed voxels whose sign disagrees with the local seed majority.
+
+    Flood-containment pre-pass for :func:`propagate_sign`: a handful of
+    wrong-sign predictions in the near-surface band can open "channels"
+    through which sign propagation floods the whole volume. A seed whose
+    sign is opposed by at least ``threshold`` net neighboring seeds (in a
+    ``size``^3 box, excluding itself) is reset to unknown (0), so
+    propagation fills it from its surroundings. Voxels at the true surface
+    see both signs in balance and are untouched for any threshold >= 2.
+    """
+    sign0 = torch.sign(vol)
+    others = _box_sum_int(sign0, size) - sign0
+    bad = (sign0 * others) <= -float(threshold)
+    return torch.where(bad, 0.0, vol)
+
+
+def propagate_sign(vol: torch.Tensor, sigma: int = 5,
+                   certainty_threshold: int = 13,
+                   stats: dict | None = None) -> torch.Tensor:
+    """Iteratively propagate SDF signs from seed voxels (sdf.py:114-178).
+
+    Each round sums the current {-1,0,+1} sign field over a (sigma^3) box;
+    voxels unknown at the start whose neighborhood sum clears the certainty
+    threshold adopt the majority sign. A round merges only while it leaves
+    fewer unknowns (zeros over the whole volume) than the field had before
+    it; the first round that does not ends the loop. Each round's test costs
+    one host sync. The volume borders are assumed outside (forced to -1) in
+    the *output* only, not in the seeds (the reference's in-place border
+    write, sdf.py:149-154). ``stats``, if given, receives ``rounds``.
+    """
+    sign = torch.sign(vol)
+    unknown_init = sign == 0.0
+    rounds = 0
+    while True:
+        rounds += 1
+        unknown_before = torch.count_nonzero(sign == 0.0)
+        conv = _box_sum_int(sign, sigma)
+        new = torch.sign(torch.where(conv.abs() < certainty_threshold, 0.0,
+                                     conv))
+        unknown_after = torch.count_nonzero(new == 0.0)
+        if not bool((unknown_before > 0) & (unknown_after < unknown_before)):
+            break
+        sign = torch.where(unknown_init, new, sign)
+    if stats is not None:
+        stats["rounds"] = rounds
+
+    vol_b = vol.clone()
+    for axis in range(3):
+        vol_b.select(axis, 0).fill_(-1.0)
+        vol_b.select(axis, -1).fill_(-1.0)
+    return torch.where(vol_b == 0.0, sign, vol_b)

@@ -31,7 +31,12 @@ def test_port_imports_no_jax():
             "points2surf_tpu_torch.models.weights, "
             "points2surf_tpu_torch.ops.voxel, "
             "points2surf_tpu_torch.train.trainer, "
-            "points2surf_tpu_torch.ops.kernels.pooled_tail; "
+            "points2surf_tpu_torch.ops.kernels.pooled_tail, "
+            "points2surf_tpu_torch.infer.meshing, "
+            "points2surf_tpu_torch.ops.marching_cubes, "
+            "points2surf_tpu_torch.ops.marching_native, "
+            "points2surf_tpu_torch.utils.mesh_io, "
+            "points2surf_tpu_torch.utils.file_utils; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'points2surf_tpu.')) or "
             "m == 'points2surf_tpu']; print(bad); sys.exit(bool(bad))")
