@@ -37,7 +37,21 @@ the reconstruction of a 256^3 mesh:
    kernels' launch counts; then the GPU volume against the CPU volume bit
    for bit (seed filter 0 and 4), a watertight mesh, a byte-identical
    second marching, and the single-shape and directory entry points
-   writing the same mesh from the card.
+   writing the same mesh from the card;
+8. the driver path: the port's ``full_run`` (``cli/full_run.py``) on a
+   copy of ``datasets/abc_minimal`` in a temporary directory, with its
+   defaults (vanilla with non-shared transformers, net 1024, 300 / 1000
+   points, batch 100, 1000 patches per shape, grid 128) but 2 epochs:
+   training, the eval pass and its MSE CSV, the reconstruction, meshing
+   and the Hausdorff/Chamfer CSV, each stage timed on the host clock and
+   its kernel launches counted (``pooled_tail`` 5 per train step, both
+   chain kernels 5 per eval and reconstruction batch); each kernel against
+   its plain version at the call sites the run reached (batch 100); the
+   checkpoint's keys against a CPU trainer's and the checkpoint loaded
+   into a CPU model; the first two reconstruction batches on the card
+   against the CPU with the same draws, and a ``torch.profiler`` summary
+   of ten batch-100 reconstruction batches; a watertight mesh and a finite
+   row in each CSV.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -48,6 +62,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import os
@@ -92,6 +107,13 @@ PEAK_BYTES = 3.35e12
 # batch; the JSON line reports the second
 MLP_SHAPES = ((16, 256, 128, 512), (64, 300, 128, NET),
               (TRAIN_BATCH, 300, 128, NET), (TRAIN_BATCH, 1000, 128, NET))
+# phase 8: the port's full_run with its defaults (vanilla, non-shared
+# transformers, batch 100, grid 128) but DRIVER_NEPOCH epochs instead of 10
+DRIVER_DATASET = "abc_minimal"
+DRIVER_BATCH = 100
+DRIVER_GRID = 128
+DRIVER_NEPOCH = 2
+DRIVER_PROFILE = 10  # reconstruction batches traced after the run
 
 
 def check(cond: bool, msg: str) -> None:
@@ -657,7 +679,7 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     from points2surf_tpu_torch.models.pointnet import _STNTrunk
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
         pooled_tail_reductions_reference)
-    from points2surf_tpu_torch.ops.patches import TrainDraws, draw_train
+    from points2surf_tpu_torch.ops.patches import TrainDraws, draw_batch
     from points2surf_tpu_torch.train.trainer import make_train_step
 
     cfg = _train_cfg()
@@ -665,8 +687,8 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     rs = np.random.RandomState(SEED + 3)
     q = torch.from_numpy(queries[:b])
     gt = torch.from_numpy((rs.randn(b) * 0.05).astype(np.float32))
-    draws = draw_train(torch.Generator().manual_seed(SEED + 3), b,
-                       pts_pad.shape[0], cfg)
+    draws = draw_batch(torch.Generator().manual_seed(SEED + 3), b,
+                       pts_pad.shape[0], cfg, train=True)
     model = copy.deepcopy(model)
     with torch.no_grad():
         for mod in model.modules():
@@ -1044,6 +1066,392 @@ def phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n):
     return best, launches
 
 
+class _Recorder:
+    """Wraps the model's kernel calls (``models/pointnet.chain_pool`` and
+    ``pooled_tail_reductions``) during phase 8 and keeps a copy of the
+    inputs of the first call at each distinct call site (shape, pool), to
+    hold the kernels against their plain versions afterwards. The wrapped
+    calls launch and count as usual."""
+
+    def __init__(self, pn):
+        self.pn = pn
+        self.real = (pn.chain_pool, pn.pooled_tail_reductions)
+        self.chain, self.tail = {}, {}
+
+    def __enter__(self):
+        real_chain, real_tail = self.real
+
+        def chain(x, layers, *, sym_op="max", relu_last=False):
+            key = (tuple(x.shape), sym_op, relu_last, layers[2][0].shape[1])
+            if key not in self.chain:
+                self.chain[key] = (x.clone(), tuple(
+                    tuple(t.clone() for t in layer) for layer in layers))
+            return real_chain(x, layers, sym_op=sym_op, relu_last=relu_last)
+
+        def tail(x, w, b):
+            key = (tuple(x.shape), w.shape[1])
+            if key not in self.tail:
+                self.tail[key] = (x.detach().clone(), w.detach().clone(),
+                                  b.detach().clone())
+            return real_tail(x, w, b)
+
+        self.pn.chain_pool, self.pn.pooled_tail_reductions = chain, tail
+        return self
+
+    def __exit__(self, *exc):
+        self.pn.chain_pool, self.pn.pooled_tail_reductions = self.real
+
+
+def _driver_sites_check(torch, rec, tag):
+    """Each kernel against its plain version at the call sites ``rec``
+    recorded in phase 8 (PERF.md §2 tolerances). Returns the max abs error
+    per kernel."""
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_head_reference, chain_tail, chain_tail_reference)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions, pooled_tail_reductions_reference)
+
+    err = {"chain_head": 0.0, "chain_pool": 0.0, "pooled_tail": 0.0}
+    for (shape, sym, relu_last, cout), (x, layers) in sorted(
+            rec.chain.items()):
+        h2 = chain_head(x, layers[:2])
+        e_h, bad_h = _close(h2, chain_head_reference(x, layers[:2]),
+                            "chain_head")
+        got = chain_tail(h2, layers[2], sym_op=sym, relu_last=relu_last)
+        e_t, bad_t = _close(got, chain_tail_reference(
+            h2, layers[2], sym_op=sym, relu_last=relu_last), "chain_pool")
+        print(f"[{tag}] call site B={shape[0]} n={shape[1]} cin={shape[2]} "
+              f"-> {cout} {sym}: chain_head max_abs_err {e_h:.3e} ({bad_h} "
+              f"outside), chain_pool {e_t:.3e} ({bad_t} outside; rtol 1e-4, "
+              f"atol 1e-4*max|ref|)")
+        check(bad_h == 0 and bad_t == 0, f"a chain kernel disagrees with its "
+                                         f"plain version at {shape} {sym}")
+        err["chain_head"] = max(err["chain_head"], e_h)
+        err["chain_pool"] = max(err["chain_pool"], e_t)
+    for (shape, cout), (x, w, b) in sorted(rec.tail.items()):
+        got = pooled_tail_reductions(x, w, b)
+        want = pooled_tail_reductions_reference(x, w, b)
+        bad, e = 0, 0.0
+        for g, r in zip(got, want):
+            if g.dtype == torch.int32:
+                continue
+            e_i, bad_i = _close(g, r, "pooled_tail")
+            e, bad = max(e, e_i), bad + bad_i
+        c = torch.matmul(x, w) + b
+        for v, a in ((got[0], got[1]), (got[2], got[3])):
+            at = torch.gather(c, 1, a.long()[:, None, :])[:, 0]
+            e_i, bad_i = _close(at, v, "pooled_tail value at arg")
+            e, bad = max(e, e_i), bad + bad_i
+        print(f"[{tag}] call site B={shape[0]} n={shape[1]} 128->{cout}: "
+              f"pooled_tail max_abs_err {e:.3e}, {bad} outside (the value at "
+              f"each arg index included)")
+        check(bad == 0, f"pooled_tail disagrees with its plain version at "
+                        f"{shape}")
+        err["pooled_tail"] = max(err["pooled_tail"], e)
+        del c, got, want
+    return err
+
+
+def _mixed_batch_check(torch, np, device, pn, train_opt, model_file, tmp):
+    """One full-width train step on a batch gathered from two shapes: the
+    plain step after ``PatchPipeline._assemble``'s gather, which
+    abc_minimal's shape-consecutive plan never makes. Its five tails launch
+    and hold against their plain version. Returns the max abs errors."""
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.train.trainer import Trainer
+
+    opt = argparse.Namespace(**{**vars(train_opt), "refine": model_file,
+                                "outdir": os.path.join(tmp, "mixed")})
+    tr = Trainer(opt, device=device)
+    n0 = tr.train_store.shape_patch_count[0]
+    chunk = np.arange(n0 - DRIVER_BATCH // 2, n0 + DRIVER_BATCH // 2)
+    batch = tr.train_pipe._assemble(chunk, True)
+    pooled_tail_reductions.launches = 0
+    with _Recorder(pn) as rec:
+        losses, _ = tr.steps.train_step(batch)
+    torch.cuda.synchronize()
+    launched = pooled_tail_reductions.launches
+    print(f"[driver mixed] a train step on patches {chunk[0]}-{chunk[-1]} "
+          f"(two shapes, {DRIVER_BATCH // 2} each, gathered by one "
+          f"index_select): losses {losses.tolist()}, pooled_tail launches "
+          f"{launched}")
+    check(launched == 5 and bool(torch.isfinite(losses).all()),
+          "the mixed-batch train step did not launch pooled_tail 5 times or "
+          "its losses are not finite")
+    err = _driver_sites_check(torch, rec, "driver mixed")
+    check(len(rec.tail) >= 2, f"the mixed step reached {len(rec.tail)} tail "
+                              f"call sites, expected 2")
+    return err
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _evaluator_card_vs_cpu(torch, np, device, evaluator, data, models, tmp,
+                           test_name, val_name, queries):
+    """``points_to_surf_eval`` itself (batching, the padded last batch, the
+    order of draws, one fetch per shape, the writer) on the card and on the
+    CPU, with one CPU generator's draws moved to each device, over the first
+    1.5 batches of the test shape's grid queries (reconstruction) and of
+    the val shape's GT queries (the augmented eval pass). The written
+    distances must agree at rtol 1e-3 / atol 1e-4 with no sign flip."""
+    import shutil
+
+    from points2surf_tpu_torch.cli import eval_args
+
+    n_q = DRIVER_BATCH + DRIVER_BATCH // 2
+    root = os.path.join(tmp, "first_batches")
+    for sub in ("04_pts", "05_query_pts", "05_query_dist"):
+        os.makedirs(os.path.join(root, sub))
+    for name in (test_name, val_name):
+        shutil.copy(os.path.join(data, "04_pts", name + ".xyz.npy"),
+                    os.path.join(root, "04_pts"))
+    for sub in ("05_query_pts", "05_query_dist"):
+        np.save(os.path.join(root, sub, val_name + ".ply.npy"), np.load(
+            os.path.join(data, sub, val_name + ".ply.npy"))[:n_q])
+    for split, name in (("testset", test_name), ("valset", val_name)):
+        with open(os.path.join(root, split + ".txt"), "w") as f:
+            f.write(name + "\n")
+    # the first grid queries as the store's disk cache, newer than the cloud
+    cache = os.path.join(root, "cache", f"grid_queries_r{DRIVER_GRID}_e3",
+                         test_name + ".npy")
+    os.makedirs(os.path.dirname(cache))
+    np.save(cache, queries[:n_q])
+    t_pts = os.path.getmtime(os.path.join(root, "04_pts",
+                                          test_name + ".xyz.npy"))
+    os.utime(cache, (t_pts + 10, t_pts + 10))
+
+    common = ["--indir", root, "--models", "vanilla", "--modeldir", models,
+              "--batchSize", str(DRIVER_BATCH), "--cache_capacity", "5"]
+    real_draw = evaluator.draw_batch
+    outs = {}
+    try:
+        for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            gen = torch.Generator().manual_seed(SEED + 8)
+
+            def draw(g, b, n, cfg, small_cloud=False, train=False, dev=dev,
+                     gen=gen):
+                d = real_draw(gen, b, n, cfg, small_cloud, train)
+                return type(d)(*(t.to(dev) for t in vars(d).values()))
+
+            evaluator.draw_batch = draw
+            outs[tag] = os.path.join(tmp, "first_batches_" + tag)
+            for extra in (["--dataset", "testset.txt", "--reconstruction",
+                           "True", "--query_grid_resolution",
+                           str(DRIVER_GRID), "--epsilon", "3"],
+                          ["--dataset", "valset.txt"]):
+                evaluator.points_to_surf_eval(eval_args.parse_arguments(
+                    common + ["--outdir", outs[tag]] + extra), device=dev)
+    finally:
+        evaluator.draw_batch = real_draw
+    check(_files(outs["card"]) == _files(outs["cpu"]),
+          "the card's and the CPU's evaluator wrote different files")
+    for what, sub in (("reconstruction", os.path.join(
+            "rec", "dist_ms", test_name + ".xyz.npy")),
+                      ("eval pass", os.path.join(
+            "eval", "eval", val_name + ".xyz.npy"))):
+        g, c = (np.load(os.path.join(outs[k], sub)) for k in ("card", "cpu"))
+        check(g.shape == c.shape == (n_q,),
+              f"{what}: {g.shape} and {c.shape} distances, expected {n_q}")
+        e = np.abs(g - c)
+        bad = int((e > 1e-4 + 1e-3 * np.abs(c)).sum())
+        flips = int(((np.sign(g) != np.sign(c)) & (np.abs(c) > 1e-4)).sum())
+        print(f"[driver] the evaluator's first {n_q} {what} queries (a full "
+              f"batch and a padded one), card vs CPU with the same draws: "
+              f"distances max_abs_err {float(e.max()):.3e}, {bad} outside "
+              f"rtol 1e-3 / atol 1e-4; sign flips {flips}")
+        check(bad == 0 and flips == 0,
+              f"the card's evaluator differs from the CPU's ({what})")
+
+
+def _csv_row(np, path, name):
+    """The numbers of ``path``'s one row for shape ``name`` (the MSE CSV
+    cuts names to 10 characters); fails unless there are four or more and
+    all are finite."""
+    with open(path) as f:
+        rows = [ln.split(",") for ln in f.read().splitlines()[1:]
+                if ln.strip()]
+    row = [r for r in rows if name[:8] in r[0]]
+    check(len(row) == 1, f"{path}: no single row for {name}")
+    vals = []
+    for cell in row[0]:
+        try:
+            vals.append(float(cell))
+        except ValueError:
+            pass  # a file name
+    check(len(vals) >= 4 and bool(np.isfinite(vals).all()),
+          f"{path}: row {row[0]} is not finite")
+    return vals
+
+
+def phase_driver(torch, np, device):
+    """Phase 8: the port's ``full_run`` on the card (train on abc_minimal,
+    eval pass and MSE CSV, reconstruction at grid 128, meshing, the
+    Hausdorff/Chamfer CSV), with full_run's defaults but DRIVER_NEPOCH
+    epochs, in a temporary directory that holds a copy of the dataset."""
+    import shutil
+    import tempfile
+
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.cli.full_run import STAGES, full_run
+    from points2surf_tpu_torch.infer import evaluator
+    from points2surf_tpu_torch.infer.query import make_sdf_query_fn
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.ops.patches import PatchConfig
+    from points2surf_tpu_torch.train import checkpoint as ckpt
+    from points2surf_tpu_torch.train.trainer import Trainer
+    from points2surf_tpu_torch.utils import mesh_io
+
+    counters = {"chain_head": chain_head, "chain_pool": chain_pool,
+                "pooled_tail": pooled_tail_reductions}
+    print(f"[driver] full_run: {DRIVER_DATASET}, vanilla (non-shared "
+          f"transformers), net {NET}, 300 / 1000 points, batch "
+          f"{DRIVER_BATCH}, 1000 patches per shape, grid {DRIVER_GRID}; "
+          f"nepoch {DRIVER_NEPOCH} (full_run's default is 10; cut to fit the "
+          f"time limit)")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(ROOT, "datasets", DRIVER_DATASET)
+        data = os.path.join(tmp, "datasets", DRIVER_DATASET)
+        shutil.copytree(src, data, ignore=shutil.ignore_patterns("cache"))
+        with open(os.path.join(data, "trainset.txt")) as f:
+            train_names = [ln.strip() for ln in f if ln.strip()]
+        n_patches = sum(min(1000, len(np.load(os.path.join(
+            data, "05_query_dist", s + ".ply.npy"), mmap_mode="r")))
+            for s in train_names)
+        steps_per_epoch = -(-n_patches // DRIVER_BATCH)
+        times, launches = {}, {}
+        clock = [0.0]
+
+        def stage_done(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times[stage] = now - clock[0]
+            launches[stage] = {k: f.launches for k, f in counters.items()}
+            for f in counters.values():
+                f.launches = 0
+            clock[0] = time.perf_counter()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        clock[0] = time.perf_counter()
+        with _Recorder(pn) as rec:
+            csv = full_run(base_dir=os.path.join(tmp, "datasets"),
+                           dataset=DRIVER_DATASET, out_root=tmp,
+                           nepoch=DRIVER_NEPOCH, batch_size=DRIVER_BATCH,
+                           grid_resolution=DRIVER_GRID, net_size=NET,
+                           device=device, stage_done=stage_done)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(tuple(times) == STAGES, f"full_run reported stages {times}")
+        res = os.path.join(tmp, "results", "vanilla", DRIVER_DATASET)
+        with open(os.path.join(data, "testset.txt")) as f:
+            test_name = f.read().split()[0]
+        with open(os.path.join(data, "valset.txt")) as f:
+            val_name = f.read().split()[0]
+        queries = np.load(os.path.join(res, "rec", "query_pts_ms",
+                                       test_name + ".xyz.npy"))
+        dists = np.load(os.path.join(res, "rec", "dist_ms",
+                                     test_name + ".xyz.npy"))
+        n_val = len(np.load(os.path.join(data, "05_query_dist",
+                                          val_name + ".ply.npy")))
+        n_steps = DRIVER_NEPOCH * steps_per_epoch
+        rec_batches = -(-len(queries) // DRIVER_BATCH)
+        eval_batches = -(-n_val // DRIVER_BATCH)
+        print(f"[driver] train {times['train']:.3f} s ({n_steps} steps, "
+              f"{times['train'] / DRIVER_NEPOCH:.3f} s per epoch with its "
+              f"interleaved test batches and checkpoints, "
+              f"{n_steps * DRIVER_BATCH / times['train']:.1f} train "
+              f"patches/s); eval pass {times['eval']:.3f} s ({n_val} "
+              f"queries, {eval_batches} batches, with its MSE CSV); "
+              f"reconstruction {times['reconstruction']:.3f} s ({len(queries)}"
+              f" grid-{DRIVER_GRID} queries, {rec_batches} batches, "
+              f"{len(queries) / times['reconstruction']:.1f} queries/s); "
+              f"meshing {times['meshing']:.3f} s; comparison "
+              f"{times['comparison']:.3f} s; peak {peak:.3f} GiB (host "
+              f"clock, torch.cuda.synchronize() at each stage's end)")
+        for stage in STAGES:
+            print(f"[driver] launches in {stage}: " + ", ".join(
+                f"{k} {v}" for k, v in launches[stage].items()))
+        _card_state("driver")
+        tr = launches["train"]
+        check(tr["pooled_tail"] == 5 * n_steps,
+              f"pooled_tail launched {tr['pooled_tail']} times in training, "
+              f"not 5 per step over {n_steps} steps")
+        for stage, batches in (("eval", eval_batches),
+                               ("reconstruction", rec_batches)):
+            for k in ("chain_head", "chain_pool"):
+                check(launches[stage][k] == 5 * batches,
+                      f"{k} launched {launches[stage][k]} times in {stage}, "
+                      f"not 5 per batch over {batches} batches")
+        check(dists.shape == (len(queries),)
+              and bool(np.isfinite(dists).all()),
+              "reconstruction distances not finite or of the wrong shape")
+        err = _driver_sites_check(torch, rec, "driver")
+        check(len(rec.chain) >= 3 and len(rec.tail) >= 2,
+              f"phase 8 reached {len(rec.chain)} chain and {len(rec.tail)} "
+              f"tail call sites, expected 3 and 2")
+
+        # the checkpoint the card wrote; its key set is the one the port
+        # writes on the CPU for the same options
+        models = os.path.join(tmp, "models")
+        model_file = os.path.join(models, "vanilla_model.npz")
+        flat = ckpt.load_state(model_file)
+        train_opt = ckpt.load_params_namespace(
+            os.path.join(models, "vanilla_params.json"))
+        cpu_keys = set(Trainer(train_opt, device="cpu").state_dict())
+        check(set(flat) == cpu_keys, "the card's checkpoint keys differ from "
+                                     "the CPU trainer's")
+        print(f"[driver] checkpoint: {len(flat)} arrays; the key set equals "
+              f"a CPU trainer's")
+        mixed = _mixed_batch_check(torch, np, device, pn, train_opt,
+                                   model_file, tmp)
+        err = {k: max(v, mixed[k]) for k, v in err.items()}
+        # the CPU evaluator loads the card's checkpoint (strict)
+        _evaluator_card_vs_cpu(torch, np, device, evaluator, data, models,
+                               tmp, test_name, val_name, queries)
+
+        # where a batch-100 reconstruction batch spends the card's time
+        eval_opt = argparse.Namespace(
+            modeldir=models, modelpostfix="_model.npz",
+            parampostfix="_params.json", eval_dtype="auto")
+        m_gpu, _ = evaluator.load_model_for_eval(eval_opt, "vanilla", device)
+        cfg = PatchConfig(points_per_patch=train_opt.points_per_patch,
+                          patch_radius=0.0,
+                          sub_sample_size=train_opt.sub_sample_size,
+                          subsample_candidates=
+                          evaluator.EVAL_SUBSAMPLE_CANDIDATES)
+        pts = np.load(os.path.join(data, "04_pts", test_name + ".xyz.npy"))
+        pts_pad = np.zeros((-(-len(pts) // 16384) * 16384, 3), np.float32)
+        pts_pad[:len(pts)] = pts[:, :3]
+        fn = make_sdf_query_fn(m_gpu, tuple(train_opt.outputs), cfg, False)
+        pts_dev = torch.from_numpy(pts_pad).to(device)
+        q_dev = torch.from_numpy(queries).to(device)
+        g_dev = torch.Generator(device=device).manual_seed(SEED)
+        _profile(torch, lambda i: fn(
+            pts_dev, q_dev[i * DRIVER_BATCH:(i + 1) * DRIVER_BATCH],
+            len(pts), g_dev), DRIVER_PROFILE, "driver sweep")
+
+        verts, faces = mesh_io.load_mesh(os.path.join(
+            res, "rec", "mesh", test_name + ".ply"))
+        check(len(faces) > 0 and _watertight(np, np.asarray(faces)),
+              "the reconstructed mesh is missing or not watertight")
+        mse = _csv_row(np, os.path.join(res, "eval", "rme_comp_res.csv"),
+                       val_name)
+        hd = _csv_row(np, csv, test_name)
+        print(f"[driver] mesh {len(verts)} vertices, {len(faces)} faces, "
+              f"watertight; eval CSV row {mse}; Hausdorff/Chamfer CSV row "
+              f"{hd}")
+    total = {k: sum(launches[s][k] for s in STAGES) for k in counters}
+    return {"launches": total, "err": err, "times": times}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1097,9 +1505,14 @@ def main() -> int:
     tail_launches = phase_train_throughput(torch, np, device, model, pts_pad,
                                            n, queries)
     mlp_launches += mlp_maxpool.launches
-    phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n)
+    _, mesh_launches = phase_mesh(torch, np, device, cfg, model, pts,
+                                  pts_pad, n)
+    mlp_maxpool.launches = 0
+    drv = phase_driver(torch, np, device)
+    mlp_launches += mlp_maxpool.launches
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
-          f"mlp_maxpool launches on the two paths: {mlp_launches} "
+          f"mlp_maxpool launches on the query, train and driver paths: "
+          f"{mlp_launches} "
           "(no caller in either package)")
     q = kern[BATCH]
     b, n, cin, cout = MLP_SHAPES[1]
@@ -1108,29 +1521,44 @@ def main() -> int:
     # chain_head and chain_pool: the five call sites of one query forward at
     # batch BATCH; pooled_tail: the five conv3 tails of one train step;
     # mlp_maxpool: MLP_SHAPES[1]. No single PyTorch call computes any of
-    # the four functions, so library_ms is null.
+    # the four functions, so library_ms is null. launches sums the paths
+    # (query phase 4, train phase 6, mesh phase 7, driver phase 8; each
+    # counted from 0 just before it), launches_by_path splits them.
+    dl = drv["launches"]
+    by_path = {
+        "chain_head": {"query": launches["chain_head"],
+                       "mesh": mesh_launches["chain_head"],
+                       "driver": dl["chain_head"]},
+        "chain_pool": {"query": launches["chain_pool"],
+                       "mesh": mesh_launches["chain_pool"],
+                       "driver": dl["chain_pool"]},
+        "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"]},
+        "mlp_maxpool": {"all": mlp_launches},
+    }
     entries = (
         ("chain_head", "chain_head.cu", "chain_kernel.py:187",
-         launches["chain_head"], kern["err"]["chain_head"], q["head"],
+         max(kern["err"]["chain_head"], drv["err"]["chain_head"]), q["head"],
          q["head_plain"], *q["head_cost"]),
         ("chain_pool", "chain_pool.cu", "chain_kernel.py:187",
-         launches["chain_pool"], kern["err"]["chain_pool"], q["tail"],
+         max(kern["err"]["chain_pool"], drv["err"]["chain_pool"]), q["tail"],
          q["tail_plain"], *q["tail_cost"]),
-        ("pooled_tail", "pooled_tail.cu", "train_tail.py:138", tail_launches,
-         tail["max_abs_err"], tail["ms"], tail["plain_ms"], *tail["cost"]),
-        ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52", mlp_launches,
+        ("pooled_tail", "pooled_tail.cu", "train_tail.py:138",
+         max(tail["max_abs_err"], drv["err"]["pooled_tail"]), tail["ms"],
+         tail["plain_ms"], *tail["cost"]),
+        ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
          mlp_bytes),
     )
     kernels = []
-    for name, src, tpu, count, err, ms, plain_ms, flop, nbytes in entries:
+    for name, src, tpu, err, ms, plain_ms, flop, nbytes in entries:
         bound_ms, bound_by = _bound(flop, nbytes)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"points2surf_tpu_torch/csrc/{src}",
             "replaces": f"points2surf_tpu/ops/pallas/{tpu}",
-            "launches": count,
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,

@@ -22,29 +22,38 @@ def drain_batched_results(pending, n_total: int) -> np.ndarray:
 
 def postprocess_sdf(pred: torch.Tensor, radius: torch.Tensor, outputs,
                     fixed_radius: bool) -> torch.Tensor:
-    """Raw predictions (B, len(outputs)) -> (B,) model-space signed
-    distances (tanh^2 magnitude times sign, scaled by the patch radius)."""
+    """Raw predictions (B, n_pred) -> (B,) model-space signed distances
+    (tanh^2 magnitude times sign, scaled by the patch radius). Outputs other
+    than the three predictions (``patch_pts_ids``, ``p_index``: debug
+    plumbing) hold no column and are skipped."""
     dist = mag = sign = None
-    for dim, o in enumerate(outputs):
+    dim = 0
+    for o in outputs:
         if o == "imp_surf":
             d = L.post_process_distance(pred[:, dim])
             dist = d if fixed_radius else d * radius
+            dim += 1
         elif o == "imp_surf_magnitude":
             m = L.post_process_magnitude(pred[:, dim])
             mag = m if fixed_radius else m * radius
+            dim += 1
         elif o == "imp_surf_sign":
             sign = L.post_process_sign(pred[:, dim])
-        else:
-            raise ValueError(f"unknown output: {o}")
+            dim += 1
     return dist if dist is not None else mag * sign
 
 
 def make_sdf_query_fn(model: torch.nn.Module, outputs,
                       patch_cfg: PatchConfig, fixed_radius: bool,
-                      coherent: bool = True):
+                      augment: bool = False, coherent: bool = True):
     """Returns ``fn(points, queries, n_valid, rng, small_cloud=False)`` ->
     (B,) signed distances. ``rng`` is a ``torch.Generator`` on the points'
-    device or the batch's ``SubsampleDraws``. Puts ``model`` in eval mode.
+    device or the batch's ``SubsampleDraws`` (``TrainDraws`` with
+    ``augment``). Puts ``model`` in eval mode.
+
+    ``augment`` extracts as in training (full-cloud selection and a random
+    rotation per row, the reference's augmentation of every pass that is not
+    a reconstruction) and runs the eval forward on it.
     """
     outputs = tuple(outputs)
     model.eval()
@@ -52,7 +61,8 @@ def make_sdf_query_fn(model: torch.nn.Module, outputs,
     @torch.inference_mode()
     def query(points, queries, n_valid, rng, small_cloud: bool = False):
         batch = extract_patches(points, queries, n_valid, rng, cfg=patch_cfg,
-                                small_cloud=small_cloud, coherent=coherent)
+                                train=augment, small_cloud=small_cloud,
+                                coherent=coherent)
         pred = model(batch)
         return postprocess_sdf(pred, batch["patch_radius_ms"], outputs,
                                fixed_radius)

@@ -10,6 +10,11 @@ BatchNorm ``weight/bias/running_mean/running_var``; the ``trunk`` level of
 STN/QSTN modules is dropped. ``sgd_state_from_checkpoint`` does the same for
 the momentum trace of an ``optax.sgd`` state as the JAX package's
 checkpoints store it.
+
+``flax_from_state_dict`` and ``sgd_state_to_checkpoint`` are the inverses:
+they turn the port's model and SGD state into the JAX package's trees and
+checkpoint keys, so ``train/checkpoint.py`` writes files that the JAX
+package loads.
 """
 
 from __future__ import annotations
@@ -32,6 +37,15 @@ def _flatten(tree: dict, prefix=()):
 def _torch_key(path) -> str:
     # path ends (layer, kind, leaf); 'trunk' levels do not exist in torch
     return ".".join(p for p in path[:-2] if p != "trunk")
+
+
+# flax modules that hold their layers one level down, under 'trunk'
+_STN_NAMES = ("point_stn", "stn1", "stn2")
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys."""
+    return "".join(f"[{k!r}]" for k in path)
 
 
 def state_dict_from_flax(params: dict, batch_stats: dict | None = None
@@ -66,7 +80,8 @@ def state_dict_from_flax(params: dict, batch_stats: dict | None = None
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
 
 
-def _unflatten(items) -> dict:
+def nest(items) -> dict:
+    """(path tuple, value) pairs -> nested dicts."""
     tree: dict = {}
     for path, val in items:
         node = tree
@@ -74,6 +89,64 @@ def _unflatten(items) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = val
     return tree
+
+
+def _flax_path(module: str) -> tuple:
+    """Torch module path 'a.stn1.conv1' -> flax path ('a', 'stn1', 'trunk',
+    'conv1')."""
+    out = []
+    for part in module.split("."):
+        out.append(part)
+        if part in _STN_NAMES:
+            out.append("trunk")
+    return tuple(out)
+
+
+def flax_from_state_dict(state_dict) -> tuple[dict, dict]:
+    """A reference-layout torch ``state_dict`` -> (``params``,
+    ``batch_stats``): nested dicts of float32 numpy arrays in flax's layout,
+    the inverse of :func:`state_dict_from_flax`. Conv weights (out, in, 1)
+    and Linear weights (out, in) become kernels (in, out); BatchNorm weight /
+    bias / running statistics become ``norm/{scale, bias}`` and
+    ``{mean, var}``; ``num_batches_tracked`` is dropped. Momentum buffers
+    (parameters only) convert alike."""
+    params, stats = [], []
+    for key, val in state_dict.items():
+        val = np.asarray(val.detach().cpu() if torch.is_tensor(val) else val)
+        module, leaf = key.rsplit(".", 1)
+        path = _flax_path(module)
+        if leaf == "num_batches_tracked":
+            continue
+        if module.rsplit(".", 1)[-1].startswith("bn"):  # BatchNorm layers
+            if leaf in ("running_mean", "running_var"):
+                stats.append((path + ("norm", leaf[len("running_"):]), val))
+            else:
+                params.append((path + ("norm", "scale" if leaf == "weight"
+                                       else "bias"), val))
+        elif leaf == "weight":
+            w = val[:, :, 0] if val.ndim == 3 else val
+            params.append((path + ("linear", "kernel"), w.T))
+        elif leaf == "bias":
+            params.append((path + ("linear", "bias"), val))
+        else:
+            raise ValueError(f"unexpected state_dict key: {key}")
+    as_f32 = [(p, np.ascontiguousarray(v, np.float32)) for p, v in params]
+    return (nest(as_f32),
+            nest([(p, np.ascontiguousarray(v, np.float32))
+                        for p, v in stats]))
+
+
+def sgd_state_to_checkpoint(buffers: dict, count: int,
+                            prefix: str = "['opt_state']") -> dict:
+    """Per-parameter momentum buffers under the ``state_dict`` names and the
+    step count -> the flat checkpoint entries of an ``optax.sgd`` state
+    (``"['opt_state'][0].trace[...]"`` float32 and ``"['opt_state'][1].count"``
+    int32), the inverse of :func:`sgd_state_from_checkpoint`."""
+    trace, _ = flax_from_state_dict(buffers)
+    flat = {prefix + "[0].trace" + keystr(path): val
+            for path, val in _flatten(trace)}
+    flat[prefix + "[1].count"] = np.asarray(count, np.int32)
+    return flat
 
 
 def sgd_state_from_checkpoint(flat, prefix: str = "['opt_state']"
@@ -91,7 +164,7 @@ def sgd_state_from_checkpoint(flat, prefix: str = "['opt_state']"
              for key, val in flat.items() if key.startswith(trace)]
     if not items:
         raise ValueError(f"no SGD momentum trace under {trace}")
-    buffers = {k: v for k, v in state_dict_from_flax(_unflatten(items)).items()
+    buffers = {k: v for k, v in state_dict_from_flax(nest(items)).items()
                if not k.endswith(".num_batches_tracked")}
     count = flat.get(prefix + "[1].count")
     return buffers, None if count is None else int(np.asarray(count))

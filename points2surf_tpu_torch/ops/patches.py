@@ -17,7 +17,7 @@ package selects training patches with ``approx_max_k``).
 Randomness: the sub-sample's draws (the decimation offset and one
 log-uniform per candidate) are made by :func:`draw_subsample` and passed in
 as a :class:`SubsampleDraws`; a training batch adds one uniform rotation per
-row (:class:`TrainDraws`, :func:`draw_train`). A caller can so inject the
+row (:class:`TrainDraws`, :func:`draw_batch`). A caller can so inject the
 same numbers on two devices or frameworks.
 
 Ball mode (``patch_radius > 0``) and the uniform with-replacement
@@ -113,10 +113,18 @@ def draw_subsample(generator: torch.Generator, b: int, n: int,
     return SubsampleDraws(offset, torch.log(u * (1.0 - tiny) + tiny))
 
 
-def draw_train(generator: torch.Generator, b: int, n: int, cfg: PatchConfig,
-               small_cloud: bool = False) -> TrainDraws:
-    """Draw a training batch's randomness on ``generator``'s device."""
-    sub = draw_subsample(generator, b, n, cfg, small_cloud)
+def draw_batch(generator: torch.Generator, b: int, n: int, cfg: PatchConfig,
+               small_cloud: bool = False, train: bool = False
+               ) -> SubsampleDraws | TrainDraws:
+    """A batch's draws as :func:`extract_patches` makes them from
+    ``generator``: the sub-sample's (from a generator seeded 42 each time
+    with ``cfg.fixed_subsample``) and, with ``train``, the rotations."""
+    sub_gen = generator
+    if cfg.fixed_subsample:
+        sub_gen = torch.Generator(device=generator.device).manual_seed(42)
+    sub = draw_subsample(sub_gen, b, n, cfg, small_cloud)
+    if not train:
+        return sub
     rot = geometry.random_rotation(generator, (b,), generator.device)
     return TrainDraws(sub.offset, sub.logu, rot)
 

@@ -1,10 +1,13 @@
 """File utilities (counterpart of the part of
-``points2surf_tpu/utils/file_utils.py`` that meshing uses): the directory of
-an output file, and the mtime test of an incremental build."""
+``points2surf_tpu/utils/file_utils.py`` that meshing and the data pipeline
+use): the directory of an output file, the mtime test of an incremental
+build, and the cached ``.npy`` load of a text array."""
 
 from __future__ import annotations
 
 import os
+
+import numpy as np
 
 
 def make_dir_for_file(path: str) -> None:
@@ -41,3 +44,19 @@ def call_necessary(file_in, file_out, min_file_size: int = 0) -> bool:
     oldest_output = min(os.path.getmtime(f) for f in file_out)
     newest_input = max(os.path.getmtime(f) for f in file_in)
     return newest_input >= oldest_output
+
+
+def load_npy_if_valid(
+    path_without_npy: str, dtype: str = "float32", mmap_mode=None
+) -> np.ndarray:
+    """Load `<path>.npy` if present, else convert the text file once
+    (reference file_utils.py:250-254 + data_loader load_pts)."""
+    npy = path_without_npy + ".npy"
+    if os.path.isfile(npy):
+        arr = np.load(npy, mmap_mode=mmap_mode)
+    else:
+        arr = np.loadtxt(path_without_npy).astype(dtype)
+        np.save(npy, arr)
+    if arr.dtype != np.dtype(dtype):
+        arr = arr.astype(dtype)
+    return arr

@@ -159,7 +159,7 @@ def test_port_draws_shape_and_range():
     stride, n_cand = tp.subsample_candidates(N, cfg, False)
     assert d.logu.shape == (8, n_cand) and 0 <= int(d.offset) < stride
     assert bool((d.logu < 0).all()) and bool(torch.isfinite(d.logu).all())
-    t = tp.draw_train(gen, 8, N, cfg)
+    t = tp.draw_batch(gen, 8, N, cfg, train=True)
     assert t.logu.shape == (8, n_cand) and t.rot.shape == (8, 3, 3)
     eye = torch.eye(3).expand(8, 3, 3)
     torch.testing.assert_close(t.rot @ t.rot.transpose(1, 2), eye,

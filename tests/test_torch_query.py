@@ -36,7 +36,19 @@ def test_port_imports_no_jax():
             "points2surf_tpu_torch.ops.marching_cubes, "
             "points2surf_tpu_torch.ops.marching_native, "
             "points2surf_tpu_torch.utils.mesh_io, "
-            "points2surf_tpu_torch.utils.file_utils; "
+            "points2surf_tpu_torch.utils.file_utils, "
+            "points2surf_tpu_torch.utils.mp, "
+            "points2surf_tpu_torch.data.samplers, "
+            "points2surf_tpu_torch.data.shapes, "
+            "points2surf_tpu_torch.data.pipeline, "
+            "points2surf_tpu_torch.train.checkpoint, "
+            "points2surf_tpu_torch.infer.evaluator, "
+            "points2surf_tpu_torch.evalx.metrics, "
+            "points2surf_tpu_torch.cli.train_args, "
+            "points2surf_tpu_torch.cli.eval_args, "
+            "points2surf_tpu_torch.cli.full_train, "
+            "points2surf_tpu_torch.cli.full_eval, "
+            "points2surf_tpu_torch.cli.full_run; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'points2surf_tpu.')) or "
             "m == 'points2surf_tpu']; print(bad); sys.exit(bool(bad))")
