@@ -51,7 +51,18 @@ the reconstruction of a 256^3 mesh:
    into a CPU model; the first two reconstruction batches on the card
    against the CPU with the same draws, and a ``torch.profiler`` summary
    of ten batch-100 reconstruction batches; a watertight mesh and a finite
-   row in each CSV.
+   row in each CSV;
+9. the bf16-operand modes (``P2S_EVAL_CHAIN_PREC=default``,
+   ``P2S_PALLAS_TAIL_PREC=default``; phases 1-8 run in fp32 mode, the
+   port's default): each bf16 kernel against its plain bf16 version at
+   phase 4's five chain call sites (batch 4096) and phase 6's five tails
+   (batch 1000), with times; the bf16 query at batch 4096 (queries/s, 5 + 5
+   bf16 launches per forward) and, over every grid-256 query, its sign
+   agreement and max |diff| against fp32 mode; the bf16 train step at
+   batch 1000 (patches/s, 5 bf16 launches per step) and one step at batch
+   64 on the card against the CPU, both in bf16 mode; phase 8's trained
+   checkpoint reconstructed at grid 128 in both modes (sign agreement,
+   faces, Chamfer and Hausdorff distance between the two meshes).
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -68,6 +79,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -99,8 +111,10 @@ MESH_CERTAINTY = 13
 MESH_PASSES = 2
 KERNEL_SOURCES = ("chain_head", "chain_pool", "pooled_tail", "mlp_maxpool")
 # least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
-# peak, and HBM3 at 3.35 TB/s (H100 SXM data sheet)
+# peak, bf16-operand work at the 989 TFLOP/s dense bf16 peak, and HBM3 at
+# 3.35 TB/s (H100 SXM data sheet)
 PEAK_FLOPS = 495e12 / 3
+PEAK_FLOPS_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # mlp_maxpool shapes (B, n, Cin, Cout): the JAX package's test, the local
 # encoder tail at batch 64, the local and global encoder tails at the train
@@ -114,6 +128,15 @@ DRIVER_BATCH = 100
 DRIVER_GRID = 128
 DRIVER_NEPOCH = 2
 DRIVER_PROFILE = 10  # reconstruction batches traced after the run
+# phase 9: the bf16-operand modes, selected as in the JAX package
+BF16_ENV = {"chain": "P2S_EVAL_CHAIN_PREC", "tail": "P2S_PALLAS_TAIL_PREC"}
+BF16_WARMUP = 2
+BF16_TIMED = 5
+# the whole chain in bf16 against its plain version, rtol and atol x
+# max|ref|: one bf16 ulp (2^-8) of the output, which is what an h1 or h2
+# operand one ulp off (the two fp32 sums straddle a rounding boundary) can
+# move it by at most
+BF16_CHAIN_TOL = 2.0 ** -8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -208,25 +231,28 @@ def _random_chain(torch, gen, cin: int, device):
     return tuple(layers)
 
 
-def _bound(flop: float, nbytes: float):
-    """(least ms on the card, what bounds it): FLOP of fp32-class work at
-    PEAK_FLOPS, bytes (each input read once, each output written once) at
-    PEAK_BYTES."""
-    t_ops, t_bytes = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(flop: float, nbytes: float, peak: float = PEAK_FLOPS):
+    """(least ms on the card, what bounds it): FLOP at ``peak`` (fp32-class
+    work at PEAK_FLOPS, bf16 operands at PEAK_FLOPS_BF16), bytes (each input
+    read once, each output written once) at PEAK_BYTES."""
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _head_cost(b, n, cin):
-    """(FLOP, bytes) of chain_head: layers 1-2 of b * n points."""
+def _head_cost(b, n, cin, h2_bytes=4):
+    """(FLOP, bytes) of chain_head: layers 1-2 of b * n points (h2 of
+    ``h2_bytes`` per element: 4 in fp32 mode, 2 in bf16)."""
     flop = 2.0 * b * n * (cin * 64 + 64 * 128)
-    nbytes = 4.0 * (b * n * (cin + 128) + cin * 64 + 64 * 128 + 2 * 192)
+    nbytes = (4.0 * (b * n * cin + cin * 64 + 64 * 128 + 2 * 192)
+              + h2_bytes * b * n * 128)
     return flop, nbytes
 
 
-def _tail_cost(b, n, cout=NET):
+def _tail_cost(b, n, cout=NET, h2_bytes=4):
     """(FLOP, bytes) of the layer-3 kernel: 128 -> cout and the pool."""
     flop = 2.0 * b * n * 128 * cout
-    nbytes = 4.0 * (b * n * 128 + 128 * cout + 2 * cout + b * cout)
+    nbytes = (h2_bytes * b * n * 128
+              + 4.0 * (128 * cout + 2 * cout + b * cout))
     return flop, nbytes
 
 
@@ -1287,13 +1313,13 @@ def _csv_row(np, path, name):
     return vals
 
 
-def phase_driver(torch, np, device):
+def phase_driver(torch, np, device, tmp):
     """Phase 8: the port's ``full_run`` on the card (train on abc_minimal,
     eval pass and MSE CSV, reconstruction at grid 128, meshing, the
     Hausdorff/Chamfer CSV), with full_run's defaults but DRIVER_NEPOCH
-    epochs, in a temporary directory that holds a copy of the dataset."""
+    epochs, in the temporary directory ``tmp``, which gets a copy of the
+    dataset and keeps the run's checkpoint for phase 9."""
     import shutil
-    import tempfile
 
     import points2surf_tpu_torch.models.pointnet as pn
     from points2surf_tpu_torch.cli.full_run import STAGES, full_run
@@ -1315,141 +1341,528 @@ def phase_driver(torch, np, device):
           f"{DRIVER_BATCH}, 1000 patches per shape, grid {DRIVER_GRID}; "
           f"nepoch {DRIVER_NEPOCH} (full_run's default is 10; cut to fit the "
           f"time limit)")
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(ROOT, "datasets", DRIVER_DATASET)
-        data = os.path.join(tmp, "datasets", DRIVER_DATASET)
-        shutil.copytree(src, data, ignore=shutil.ignore_patterns("cache"))
-        with open(os.path.join(data, "trainset.txt")) as f:
-            train_names = [ln.strip() for ln in f if ln.strip()]
-        n_patches = sum(min(1000, len(np.load(os.path.join(
-            data, "05_query_dist", s + ".ply.npy"), mmap_mode="r")))
-            for s in train_names)
-        steps_per_epoch = -(-n_patches // DRIVER_BATCH)
-        times, launches = {}, {}
-        clock = [0.0]
+    src = os.path.join(ROOT, "datasets", DRIVER_DATASET)
+    data = os.path.join(tmp, "datasets", DRIVER_DATASET)
+    shutil.copytree(src, data, ignore=shutil.ignore_patterns("cache"))
+    with open(os.path.join(data, "trainset.txt")) as f:
+        train_names = [ln.strip() for ln in f if ln.strip()]
+    n_patches = sum(min(1000, len(np.load(os.path.join(
+        data, "05_query_dist", s + ".ply.npy"), mmap_mode="r")))
+        for s in train_names)
+    steps_per_epoch = -(-n_patches // DRIVER_BATCH)
+    times, launches = {}, {}
+    clock = [0.0]
 
-        def stage_done(stage):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            times[stage] = now - clock[0]
-            launches[stage] = {k: f.launches for k, f in counters.items()}
-            for f in counters.values():
-                f.launches = 0
-            clock[0] = time.perf_counter()
-
+    def stage_done(stage):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        now = time.perf_counter()
+        times[stage] = now - clock[0]
+        launches[stage] = {k: f.launches for k, f in counters.items()}
         for f in counters.values():
             f.launches = 0
         clock[0] = time.perf_counter()
-        with _Recorder(pn) as rec:
-            csv = full_run(base_dir=os.path.join(tmp, "datasets"),
-                           dataset=DRIVER_DATASET, out_root=tmp,
-                           nepoch=DRIVER_NEPOCH, batch_size=DRIVER_BATCH,
-                           grid_resolution=DRIVER_GRID, net_size=NET,
-                           device=device, stage_done=stage_done)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        check(tuple(times) == STAGES, f"full_run reported stages {times}")
-        res = os.path.join(tmp, "results", "vanilla", DRIVER_DATASET)
-        with open(os.path.join(data, "testset.txt")) as f:
-            test_name = f.read().split()[0]
-        with open(os.path.join(data, "valset.txt")) as f:
-            val_name = f.read().split()[0]
-        queries = np.load(os.path.join(res, "rec", "query_pts_ms",
-                                       test_name + ".xyz.npy"))
-        dists = np.load(os.path.join(res, "rec", "dist_ms",
-                                     test_name + ".xyz.npy"))
-        n_val = len(np.load(os.path.join(data, "05_query_dist",
-                                          val_name + ".ply.npy")))
-        n_steps = DRIVER_NEPOCH * steps_per_epoch
-        rec_batches = -(-len(queries) // DRIVER_BATCH)
-        eval_batches = -(-n_val // DRIVER_BATCH)
-        print(f"[driver] train {times['train']:.3f} s ({n_steps} steps, "
-              f"{times['train'] / DRIVER_NEPOCH:.3f} s per epoch with its "
-              f"interleaved test batches and checkpoints, "
-              f"{n_steps * DRIVER_BATCH / times['train']:.1f} train "
-              f"patches/s); eval pass {times['eval']:.3f} s ({n_val} "
-              f"queries, {eval_batches} batches, with its MSE CSV); "
-              f"reconstruction {times['reconstruction']:.3f} s ({len(queries)}"
-              f" grid-{DRIVER_GRID} queries, {rec_batches} batches, "
-              f"{len(queries) / times['reconstruction']:.1f} queries/s); "
-              f"meshing {times['meshing']:.3f} s; comparison "
-              f"{times['comparison']:.3f} s; peak {peak:.3f} GiB (host "
-              f"clock, torch.cuda.synchronize() at each stage's end)")
-        for stage in STAGES:
-            print(f"[driver] launches in {stage}: " + ", ".join(
-                f"{k} {v}" for k, v in launches[stage].items()))
-        _card_state("driver")
-        tr = launches["train"]
-        check(tr["pooled_tail"] == 5 * n_steps,
-              f"pooled_tail launched {tr['pooled_tail']} times in training, "
-              f"not 5 per step over {n_steps} steps")
-        for stage, batches in (("eval", eval_batches),
-                               ("reconstruction", rec_batches)):
-            for k in ("chain_head", "chain_pool"):
-                check(launches[stage][k] == 5 * batches,
-                      f"{k} launched {launches[stage][k]} times in {stage}, "
-                      f"not 5 per batch over {batches} batches")
-        check(dists.shape == (len(queries),)
-              and bool(np.isfinite(dists).all()),
-              "reconstruction distances not finite or of the wrong shape")
-        err = _driver_sites_check(torch, rec, "driver")
-        check(len(rec.chain) >= 3 and len(rec.tail) >= 2,
-              f"phase 8 reached {len(rec.chain)} chain and {len(rec.tail)} "
-              f"tail call sites, expected 3 and 2")
 
-        # the checkpoint the card wrote; its key set is the one the port
-        # writes on the CPU for the same options
-        models = os.path.join(tmp, "models")
-        model_file = os.path.join(models, "vanilla_model.npz")
-        flat = ckpt.load_state(model_file)
-        train_opt = ckpt.load_params_namespace(
-            os.path.join(models, "vanilla_params.json"))
-        cpu_keys = set(Trainer(train_opt, device="cpu").state_dict())
-        check(set(flat) == cpu_keys, "the card's checkpoint keys differ from "
-                                     "the CPU trainer's")
-        print(f"[driver] checkpoint: {len(flat)} arrays; the key set equals "
-              f"a CPU trainer's")
-        mixed = _mixed_batch_check(torch, np, device, pn, train_opt,
-                                   model_file, tmp)
-        err = {k: max(v, mixed[k]) for k, v in err.items()}
-        # the CPU evaluator loads the card's checkpoint (strict)
-        _evaluator_card_vs_cpu(torch, np, device, evaluator, data, models,
-                               tmp, test_name, val_name, queries)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    clock[0] = time.perf_counter()
+    with _Recorder(pn) as rec:
+        csv = full_run(base_dir=os.path.join(tmp, "datasets"),
+                       dataset=DRIVER_DATASET, out_root=tmp,
+                       nepoch=DRIVER_NEPOCH, batch_size=DRIVER_BATCH,
+                       grid_resolution=DRIVER_GRID, net_size=NET,
+                       device=device, stage_done=stage_done)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(tuple(times) == STAGES, f"full_run reported stages {times}")
+    res = os.path.join(tmp, "results", "vanilla", DRIVER_DATASET)
+    with open(os.path.join(data, "testset.txt")) as f:
+        test_name = f.read().split()[0]
+    with open(os.path.join(data, "valset.txt")) as f:
+        val_name = f.read().split()[0]
+    queries = np.load(os.path.join(res, "rec", "query_pts_ms",
+                                   test_name + ".xyz.npy"))
+    dists = np.load(os.path.join(res, "rec", "dist_ms",
+                                 test_name + ".xyz.npy"))
+    n_val = len(np.load(os.path.join(data, "05_query_dist",
+                                      val_name + ".ply.npy")))
+    n_steps = DRIVER_NEPOCH * steps_per_epoch
+    rec_batches = -(-len(queries) // DRIVER_BATCH)
+    eval_batches = -(-n_val // DRIVER_BATCH)
+    print(f"[driver] train {times['train']:.3f} s ({n_steps} steps, "
+          f"{times['train'] / DRIVER_NEPOCH:.3f} s per epoch with its "
+          f"interleaved test batches and checkpoints, "
+          f"{n_steps * DRIVER_BATCH / times['train']:.1f} train "
+          f"patches/s); eval pass {times['eval']:.3f} s ({n_val} "
+          f"queries, {eval_batches} batches, with its MSE CSV); "
+          f"reconstruction {times['reconstruction']:.3f} s ({len(queries)}"
+          f" grid-{DRIVER_GRID} queries, {rec_batches} batches, "
+          f"{len(queries) / times['reconstruction']:.1f} queries/s); "
+          f"meshing {times['meshing']:.3f} s; comparison "
+          f"{times['comparison']:.3f} s; peak {peak:.3f} GiB (host "
+          f"clock, torch.cuda.synchronize() at each stage's end)")
+    for stage in STAGES:
+        print(f"[driver] launches in {stage}: " + ", ".join(
+            f"{k} {v}" for k, v in launches[stage].items()))
+    _card_state("driver")
+    tr = launches["train"]
+    check(tr["pooled_tail"] == 5 * n_steps,
+          f"pooled_tail launched {tr['pooled_tail']} times in training, "
+          f"not 5 per step over {n_steps} steps")
+    for stage, batches in (("eval", eval_batches),
+                           ("reconstruction", rec_batches)):
+        for k in ("chain_head", "chain_pool"):
+            check(launches[stage][k] == 5 * batches,
+                  f"{k} launched {launches[stage][k]} times in {stage}, "
+                  f"not 5 per batch over {batches} batches")
+    check(dists.shape == (len(queries),)
+          and bool(np.isfinite(dists).all()),
+          "reconstruction distances not finite or of the wrong shape")
+    err = _driver_sites_check(torch, rec, "driver")
+    check(len(rec.chain) >= 3 and len(rec.tail) >= 2,
+          f"phase 8 reached {len(rec.chain)} chain and {len(rec.tail)} "
+          f"tail call sites, expected 3 and 2")
 
-        # where a batch-100 reconstruction batch spends the card's time
-        eval_opt = argparse.Namespace(
-            modeldir=models, modelpostfix="_model.npz",
-            parampostfix="_params.json", eval_dtype="auto")
-        m_gpu, _ = evaluator.load_model_for_eval(eval_opt, "vanilla", device)
-        cfg = PatchConfig(points_per_patch=train_opt.points_per_patch,
-                          patch_radius=0.0,
-                          sub_sample_size=train_opt.sub_sample_size,
-                          subsample_candidates=
-                          evaluator.EVAL_SUBSAMPLE_CANDIDATES)
-        pts = np.load(os.path.join(data, "04_pts", test_name + ".xyz.npy"))
-        pts_pad = np.zeros((-(-len(pts) // 16384) * 16384, 3), np.float32)
-        pts_pad[:len(pts)] = pts[:, :3]
-        fn = make_sdf_query_fn(m_gpu, tuple(train_opt.outputs), cfg, False)
-        pts_dev = torch.from_numpy(pts_pad).to(device)
-        q_dev = torch.from_numpy(queries).to(device)
-        g_dev = torch.Generator(device=device).manual_seed(SEED)
-        _profile(torch, lambda i: fn(
-            pts_dev, q_dev[i * DRIVER_BATCH:(i + 1) * DRIVER_BATCH],
-            len(pts), g_dev), DRIVER_PROFILE, "driver sweep")
+    # the checkpoint the card wrote; its key set is the one the port
+    # writes on the CPU for the same options
+    models = os.path.join(tmp, "models")
+    model_file = os.path.join(models, "vanilla_model.npz")
+    flat = ckpt.load_state(model_file)
+    train_opt = ckpt.load_params_namespace(
+        os.path.join(models, "vanilla_params.json"))
+    cpu_keys = set(Trainer(train_opt, device="cpu").state_dict())
+    check(set(flat) == cpu_keys, "the card's checkpoint keys differ from "
+                                 "the CPU trainer's")
+    print(f"[driver] checkpoint: {len(flat)} arrays; the key set equals "
+          f"a CPU trainer's")
+    mixed = _mixed_batch_check(torch, np, device, pn, train_opt,
+                               model_file, tmp)
+    err = {k: max(v, mixed[k]) for k, v in err.items()}
+    # the CPU evaluator loads the card's checkpoint (strict)
+    _evaluator_card_vs_cpu(torch, np, device, evaluator, data, models,
+                           tmp, test_name, val_name, queries)
 
-        verts, faces = mesh_io.load_mesh(os.path.join(
-            res, "rec", "mesh", test_name + ".ply"))
-        check(len(faces) > 0 and _watertight(np, np.asarray(faces)),
-              "the reconstructed mesh is missing or not watertight")
-        mse = _csv_row(np, os.path.join(res, "eval", "rme_comp_res.csv"),
-                       val_name)
-        hd = _csv_row(np, csv, test_name)
-        print(f"[driver] mesh {len(verts)} vertices, {len(faces)} faces, "
-              f"watertight; eval CSV row {mse}; Hausdorff/Chamfer CSV row "
-              f"{hd}")
+    # where a batch-100 reconstruction batch spends the card's time
+    eval_opt = argparse.Namespace(
+        modeldir=models, modelpostfix="_model.npz",
+        parampostfix="_params.json", eval_dtype="auto")
+    m_gpu, _ = evaluator.load_model_for_eval(eval_opt, "vanilla", device)
+    cfg = PatchConfig(points_per_patch=train_opt.points_per_patch,
+                      patch_radius=0.0,
+                      sub_sample_size=train_opt.sub_sample_size,
+                      subsample_candidates=
+                      evaluator.EVAL_SUBSAMPLE_CANDIDATES)
+    pts = np.load(os.path.join(data, "04_pts", test_name + ".xyz.npy"))
+    pts_pad = np.zeros((-(-len(pts) // 16384) * 16384, 3), np.float32)
+    pts_pad[:len(pts)] = pts[:, :3]
+    fn = make_sdf_query_fn(m_gpu, tuple(train_opt.outputs), cfg, False)
+    pts_dev = torch.from_numpy(pts_pad).to(device)
+    q_dev = torch.from_numpy(queries).to(device)
+    g_dev = torch.Generator(device=device).manual_seed(SEED)
+    _profile(torch, lambda i: fn(
+        pts_dev, q_dev[i * DRIVER_BATCH:(i + 1) * DRIVER_BATCH],
+        len(pts), g_dev), DRIVER_PROFILE, "driver sweep")
+
+    verts, faces = mesh_io.load_mesh(os.path.join(
+        res, "rec", "mesh", test_name + ".ply"))
+    check(len(faces) > 0 and _watertight(np, np.asarray(faces)),
+          "the reconstructed mesh is missing or not watertight")
+    mse = _csv_row(np, os.path.join(res, "eval", "rme_comp_res.csv"),
+                   val_name)
+    hd = _csv_row(np, csv, test_name)
+    print(f"[driver] mesh {len(verts)} vertices, {len(faces)} faces, "
+          f"watertight; eval CSV row {mse}; Hausdorff/Chamfer CSV row "
+          f"{hd}")
     total = {k: sum(launches[s][k] for s in STAGES) for k in counters}
-    return {"launches": total, "err": err, "times": times}
+    return {"launches": total, "err": err, "times": times, "models": models,
+            "test_pts_pad": pts_pad, "test_n": len(pts),
+            "rec_queries": queries,
+            "outputs": tuple(train_opt.outputs), "cfg": cfg}
+
+
+class _Bf16Mode:
+    """Sets the JAX package's variables that select the bf16-operand mode
+    (``default``) of the eval chain and the train tail while it lives."""
+
+    def __enter__(self):
+        for env in BF16_ENV.values():
+            os.environ[env] = "default"
+        return self
+
+    def __exit__(self, *exc):
+        for env in BF16_ENV.values():
+            del os.environ[env]
+
+
+def _zero_launches(*fns) -> None:
+    for f in fns:
+        f.launches = 0
+        f.launches_bf16 = 0
+
+
+def phase_bf16_kernels(torch, device):
+    """Phase 9, kernels: chain_head, chain_pool (layer 3) and pooled_tail in
+    the bf16 mode against their plain bf16 versions at the query path's
+    chain call sites (batch BATCH) and the train step's tails (batch
+    TRAIN_BATCH), with times. Layer 3 takes the kernel's own bf16 h2, so it
+    and its plain version see the same operands."""
+    from points2surf_tpu_torch.device import round_bf16
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_head_bf16_straddles, chain_head_reference,
+        chain_pool, chain_pool_reference, chain_tail, chain_tail_reference)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions, pooled_tail_reductions_reference)
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    dgen = torch.Generator(device=device).manual_seed(SEED + 10)
+    err = {"chain_head": 0.0, "chain_pool": 0.0, "chain": 0.0,
+           "pooled_tail": 0.0}
+    res = {"err": err, "straddles": 0, "h2_elements": 0}
+    times = {}
+    bf = dict(bf16_operands=True)
+    for cin, n, _ in CHAIN_SITES:
+        x = torch.randn((BATCH, n, cin), generator=dgen, device=device)
+        layers = _random_chain(torch, gen, cin, device)
+        h2 = chain_head(x, layers[:2], **bf)
+        want = chain_head_reference(x, layers[:2], **bf)
+        torch.cuda.synchronize()
+        check(h2.dtype == torch.bfloat16, "chain_head bf16: h2 is not bf16")
+        e_h = float((h2.float() - want).abs().max())
+        differ = unexplained = 0
+        for i in range(0, BATCH, 512):  # the check's fp32 temporaries
+            d, u = chain_head_bf16_straddles(x[i:i + 512], layers[:2],
+                                             h2[i:i + 512])
+            differ, unexplained = differ + d, unexplained + u
+        del want
+        err["chain_head"] = max(err["chain_head"], e_h)
+        res["straddles"] += differ
+        res["h2_elements"] += h2.numel()
+        print(f"[bf16 kernel] chain_head B={BATCH} n={n} cin={cin}: h2 bf16; "
+              f"{differ} of {h2.numel()} elements differ from the plain "
+              f"version (rounding-boundary straddles, max abs err "
+              f"{e_h:.3e}), {unexplained} not explained by a straddle")
+        check(unexplained == 0, f"chain_head bf16 disagrees with its plain "
+                                f"version: B={BATCH} n={n} cin={cin}")
+        for sym in ("max", "sum"):
+            got = chain_tail(h2, layers[2], sym_op=sym, **bf)
+            e_t, bad_t = _close(got, _chunked(torch, lambda v: (
+                chain_tail_reference(v, layers[2], sym_op=sym, **bf)), h2,
+                128), "chain_pool bf16 layer 3")
+            got = chain_pool(x, layers, sym_op=sym, **bf)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"chain_pool bf16 {n}x{cin} {sym}: non-finite output")
+            want = _chunked(torch, lambda v: chain_pool_reference(
+                v, layers, sym_op=sym, **bf), x, 128)
+            diff = (got.double() - want.double()).abs()
+            scale = float(want.abs().max())
+            e_c = float(diff.max()) / scale
+            bad_c = int((diff > BF16_CHAIN_TOL * (scale + want.abs()))
+                        .sum())
+            err["chain_pool"] = max(err["chain_pool"], e_t)
+            err["chain"] = max(err["chain"], e_c)
+            print(f"[bf16 kernel] chain_pool B={BATCH} n={n} cin={cin} "
+                  f"{sym}: layer 3 on the same bf16 h2 vs plain max_abs_err "
+                  f"{e_t:.3e}, {bad_t} outside rtol 1e-4 / atol "
+                  f"1e-4*max|ref|; whole chain vs plain max|err|/max|ref| "
+                  f"{e_c:.3e}, {bad_c} outside rtol / atol 2^-8 x max|ref|")
+            check(bad_t == 0 and bad_c == 0, f"chain_pool bf16 disagrees "
+                                             f"with its plain version: "
+                                             f"n={n} cin={cin} {sym}")
+        t = {
+            "chain": _events_ms(torch, lambda: chain_pool(x, layers, **bf), 5),
+            "head": _events_ms(torch, lambda: chain_head(x, layers[:2], **bf),
+                               5),
+            "tail": _events_ms(torch, lambda: chain_tail(h2, layers[2], **bf),
+                               5),
+            "head_plain": _events_ms(torch, lambda: chain_head_reference(
+                x, layers[:2], **bf), 2),
+            "tail_plain": _events_ms(torch, lambda: _chunked(
+                torch, lambda v: chain_tail_reference(v, layers[2], **bf), h2,
+                128), 2),
+        }
+        times[(cin, n)] = t
+        print(f"[bf16 kernel] B={BATCH} cin={cin} n={n} max: chain "
+              f"{t['chain']:.4f} ms; chain_head {t['head']:.4f} ms vs plain "
+              f"{t['head_plain']:.4f}; layer 3 {t['tail']:.4f} ms vs plain "
+              f"{t['tail_plain']:.4f}")
+        del x, h2
+    tot = {k: sum(cnt * times[(cin, n)][k] for cin, n, cnt in CHAIN_SITES)
+           for k in times[CHAIN_SITES[0][:2]]}
+    res["head_cost"] = [sum(cnt * _head_cost(BATCH, n, cin, 2)[i]
+                            for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
+    res["tail_cost"] = [sum(cnt * _tail_cost(BATCH, n, h2_bytes=2)[i]
+                            for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
+    res.update(tot)
+    b_head, _ = _bound(*res["head_cost"], PEAK_FLOPS_BF16)
+    b_tail, _ = _bound(*res["tail_cost"], PEAK_FLOPS_BF16)
+    print(f"[bf16 kernel] five chains of one B={BATCH} forward (max): "
+          f"{tot['chain']:.4f} ms; chain_head {tot['head']:.4f} ms (bound "
+          f"{b_head:.3f}), layer 3 {tot['tail']:.4f} ms (bound {b_tail:.3f}, "
+          f"{b_tail / tot['tail']:.1%}); plain {tot['head_plain']:.4f} + "
+          f"{tot['tail_plain']:.4f} ms; h2 straddles {res['straddles']} of "
+          f"{res['h2_elements']}")
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    tails = {}
+    for n, _ in TAIL_SITES:
+        x = torch.relu(torch.randn((TRAIN_BATCH, n, 128), generator=gen)).to(
+            device)
+        w = (torch.randn((128, NET), generator=gen) / 128 ** 0.5).to(device)
+        bias = (torch.randn((NET,), generator=gen) * 0.1).to(device)
+        got = pooled_tail_reductions(x, w, bias, **bf)
+        again = pooled_tail_reductions(x, w, bias, **bf)
+        want = pooled_tail_reductions_reference(x, w, bias, **bf)
+        torch.cuda.synchronize()
+        for g, a in zip(got, again):
+            check(torch.equal(g, a), f"pooled_tail bf16 n={n}: a rerun "
+                                     f"differs")
+        bad, e_p = 0, 0.0
+        for g, r in zip(got, want):
+            if g.dtype != torch.int32:
+                e, nb = _close(g, r, "pooled_tail bf16")
+                e_p, bad = max(e_p, e), bad + nb
+        del want
+        # the arg contract in the kernel's numerics: the bf16 product there
+        c = torch.matmul(round_bf16(x), round_bf16(w)) + bias
+        for v, a in ((got[0], got[1]), (got[2], got[3])):
+            e, nb = _close(torch.gather(c, 1, a.long()[:, None, :])[:, 0], v,
+                           "pooled_tail bf16 value at arg")
+            e_p, bad = max(e_p, e), bad + nb
+        del c
+        err["pooled_tail"] = max(err["pooled_tail"], e_p)
+        t_k = _events_ms(torch, lambda: pooled_tail_reductions(
+            x, w, bias, **bf), 10)
+        t_p = _events_ms(torch, lambda: pooled_tail_reductions_reference(
+            x, w, bias, **bf), 5)
+        tails[n] = (t_k, t_p)
+        print(f"[bf16 kernel] pooled_tail B={TRAIN_BATCH} n={n} 128->{NET}: "
+              f"max_abs_err {e_p:.3e} (rtol 1e-4, atol 1e-4*max|ref|, the "
+              f"value at each arg included), {bad} outside, rerun "
+              f"bit-identical; kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        check(bad == 0, f"pooled_tail bf16 disagrees with its plain version: "
+                        f"n={n}")
+        del x, got, again
+    res["tail_ms"] = sum(cnt * tails[n][0] for n, cnt in TAIL_SITES)
+    res["tail_plain_ms"] = sum(cnt * tails[n][1] for n, cnt in TAIL_SITES)
+    res["pooled_tail_cost"] = [sum(cnt * _pooled_tail_cost(TRAIN_BATCH, n)[i]
+                                   for n, cnt in TAIL_SITES) for i in (0, 1)]
+    bound, _ = _bound(*res["pooled_tail_cost"], PEAK_FLOPS_BF16)
+    _card_state("bf16 kernel")
+    print(f"[bf16 kernel] five conv3 tails of one B={TRAIN_BATCH} train "
+          f"forward: kernel {res['tail_ms']:.4f} ms, {bound / res['tail_ms']:.1%}"
+          f" of the {bound:.3f} ms bound; plain {res['tail_plain_ms']:.4f} ms")
+    return res
+
+
+def _sweep(torch, np, fn, pts_t, n, queries, seed, device):
+    """Signed distances of every query, in batches of BATCH (the last padded
+    with its first query), drawn from a generator seeded ``seed``."""
+    from points2surf_tpu_torch.infer.query import drain_batched_results
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q_all = torch.from_numpy(queries).to(device)
+    pending = []
+    for s in range(0, len(queries), BATCH):
+        q = q_all[s:s + BATCH]
+        if len(q) < BATCH:
+            q = torch.cat([q, q[:1].expand(BATCH - len(q), 3)])
+        pending.append(fn(pts_t, q, n, gen))
+    return drain_batched_results(pending, len(queries)), len(pending)
+
+
+def _mode_agreement(np, d16, d32):
+    """(share of queries with the same sign, max |d16 - d32|)."""
+    return (float(np.mean(np.sign(d16) == np.sign(d32))),
+            float(np.abs(d16 - d32).max()))
+
+
+def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
+                     drv, tmp):
+    """Phase 9, paths: the bf16 query and train step at full width, the
+    train step against the CPU in bf16 mode, and phase 8's checkpoint
+    reconstructed in both modes. Returns the bf16 launch counts by path."""
+    from points2surf_tpu_torch.evalx import metrics
+    from points2surf_tpu_torch.infer import evaluator, meshing
+    from points2surf_tpu_torch.infer.query import make_sdf_query_fn
+    from points2surf_tpu_torch.models.pointnet import _STNTrunk
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.ops.patches import draw_batch
+    from points2surf_tpu_torch.train.trainer import make_train_step
+    from points2surf_tpu_torch.utils import mesh_io
+
+    kernels = (chain_head, chain_pool, pooled_tail_reductions)
+    launched = {}
+
+    def counts():
+        return {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+    pts_t = torch.from_numpy(pts_pad).to(device)
+    fn = make_sdf_query_fn(model, OUTPUTS, cfg, fixed_radius=False)
+    q_all = torch.from_numpy(queries).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    # the query at batch BATCH in bf16 mode, then the whole grid-256 sweep
+    torch.cuda.synchronize()
+    _zero_launches(*kernels)
+    with _Bf16Mode():
+        for i in range(BF16_WARMUP):
+            fn(pts_t, q_all[i * BATCH:(i + 1) * BATCH], n, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(BF16_WARMUP, BF16_WARMUP + BF16_TIMED):
+            out = fn(pts_t, q_all[i * BATCH:(i + 1) * BATCH], n, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(out.shape == (BATCH,) and bool(torch.isfinite(out).all()),
+              "bf16 query output not finite or of the wrong shape")
+        t0 = time.perf_counter()
+        d16, n_sweep = _sweep(torch, np, fn, pts_t, n, queries, SEED + 11,
+                              device)
+        t_16 = time.perf_counter() - t0
+    c = counts()
+    n_batches = BF16_WARMUP + BF16_TIMED + n_sweep
+    launched["query"] = c
+    t0 = time.perf_counter()
+    d32, _ = _sweep(torch, np, fn, pts_t, n, queries, SEED + 11, device)
+    t_32 = time.perf_counter() - t0
+    agree, delta = _mode_agreement(np, d16, d32)
+    print(f"[bf16 query] {BATCH * BF16_TIMED / dt:.1f} queries/s at batch "
+          f"{BATCH} with P2S_EVAL_CHAIN_PREC=default ({BF16_TIMED} timed "
+          f"batches, {dt / BF16_TIMED * 1e3:.2f} ms/batch host clock); the "
+          f"{len(queries)} grid-256 queries: bf16 sweep {t_16:.3f} s, fp32 "
+          f"sweep {t_32:.3f} s ({n_sweep} batches each, the same draws): "
+          f"same sign {agree:.6%}, max |diff| {delta:.3e}")
+    print(f"[bf16 query] launches (fp32, bf16) over {n_batches} bf16 "
+          f"batches: {c} (expected (0, {5 * n_batches}) for each chain "
+          f"kernel)")
+    check(bool(np.isfinite(d16).all()), "bf16 sweep: non-finite distances")
+    for name in ("chain_head", "chain_pool"):
+        check(c[name] == (0, 5 * n_batches),
+              f"{name}: not 5 bf16 launches per bf16 forward: {c[name]}")
+
+    # the train step at batch TRAIN_BATCH in bf16 mode
+    steps = make_train_step(copy.deepcopy(model).to(device), OUTPUTS,
+                            lr=0.01, momentum=0.9, patch_cfg=_train_cfg())
+    gt = torch.from_numpy((np.random.RandomState(SEED).randn(TRAIN_BATCH)
+                           * 0.05).astype(np.float32)).to(device)
+    torch.cuda.synchronize()
+    _zero_launches(*kernels)
+    with _Bf16Mode():
+        for i in range(BF16_WARMUP):
+            steps.train_step_fused(
+                pts_t, q_all[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], n, gt,
+                gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(BF16_WARMUP, BF16_WARMUP + BF16_TIMED):
+            losses, _ = steps.train_step_fused(
+                pts_t, q_all[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], n, gt,
+                gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    c = counts()
+    launched["train"] = c
+    n_steps = BF16_WARMUP + BF16_TIMED
+    print(f"[bf16 train] {TRAIN_BATCH * BF16_TIMED / dt:.1f} train patches/s "
+          f"at batch {TRAIN_BATCH} with P2S_PALLAS_TAIL_PREC=default "
+          f"({dt / BF16_TIMED * 1e3:.2f} ms/step host clock); last losses "
+          f"{losses.tolist()}; pooled_tail launches (fp32, bf16) "
+          f"{c['pooled_tail_reductions']} over {n_steps} steps (expected "
+          f"(0, {5 * n_steps}))")
+    check(bool(torch.isfinite(losses).all()), "non-finite bf16 train loss")
+    check(c["pooled_tail_reductions"] == (0, 5 * n_steps),
+          "pooled_tail: not 5 bf16 launches per bf16 train step")
+    del steps
+
+    # one step at batch SLICE_TRAIN_BATCH, card against CPU, both in bf16
+    # mode, on the card's batch, the transformers' last layers at zero
+    b = SLICE_TRAIN_BATCH
+    m0 = copy.deepcopy(model)
+    with torch.no_grad():
+        for mod in m0.modules():
+            if isinstance(mod, _STNTrunk):
+                mod.fc3.weight.zero_()
+                mod.fc3.bias.zero_()
+    draws = draw_batch(torch.Generator().manual_seed(SEED + 13), b,
+                       pts_pad.shape[0], _train_cfg(), train=True)
+    res, batch = [], None
+    with _Bf16Mode():
+        for dev in (device, torch.device("cpu")):
+            m = copy.deepcopy(m0).to(dev)
+            st = make_train_step(m, OUTPUTS, lr=0.01, momentum=0.9,
+                                 patch_cfg=_train_cfg())
+            if batch is None:  # on the card, then the same rows on the CPU
+                batch = st.extract_train_batch(
+                    pts_t, q_all[:b], n, gt[:b], type(draws)(
+                        *(t.to(device) for t in vars(draws).values())))
+            losses, _ = st.train_step({k: v.to(dev)
+                                       for k, v in batch.items()})
+            g = {k: p.grad.cpu() for k, p in m.named_parameters()}
+            res.append((losses.cpu(), g))
+    (l_g, g_g), (l_c, g_c) = res
+    e_l = float(((l_g - l_c).abs() / l_c.abs()).max())
+    g_max = max(float(v.abs().max()) for v in g_c.values())
+    e_g = max(float((g_g[k] - v).abs().max()) for k, v in g_c.items()) / g_max
+    print(f"[bf16 train] one step at batch {b}, card vs CPU in bf16 mode on "
+          f"the card's batch: losses {l_g.tolist()} vs {l_c.tolist()}, max "
+          f"rel err {e_l:.3e} (rtol 1e-3); gradients max|err| / max|g| "
+          f"{e_g:.3e}")
+    check(bool(torch.isfinite(l_g).all()) and e_l <= 1e-3,
+          "the bf16 train step differs between card and CPU")
+
+    # phase 8's trained checkpoint, reconstructed at grid DRIVER_GRID in
+    # both modes with the same draws; meshes by full_run's settings
+    eval_opt = argparse.Namespace(
+        modeldir=drv["models"], modelpostfix="_model.npz",
+        parampostfix="_params.json", eval_dtype="auto")
+    m_rec, _ = evaluator.load_model_for_eval(eval_opt, "vanilla", device)
+    fn_rec = make_sdf_query_fn(m_rec, drv["outputs"], drv["cfg"], False)
+    rec_pts = torch.from_numpy(drv["test_pts_pad"]).to(device)
+    rec_q = drv["rec_queries"]
+    meshes, dists = {}, {}
+    _zero_launches(*kernels)
+    for mode in ("bf16", "fp32"):
+        if mode == "bf16":
+            with _Bf16Mode():
+                dists[mode], n_rec = _sweep(torch, np, fn_rec, rec_pts,
+                                            drv["test_n"], rec_q, SEED + 14,
+                                            device)
+            launched["reconstruction"] = counts()
+        else:
+            dists[mode], _ = _sweep(torch, np, fn_rec, rec_pts, drv["test_n"],
+                                    rec_q, SEED + 14, device)
+        ply = os.path.join(tmp, f"bf16_phase_{mode}.ply")
+        ok = meshing.implicit_surface_to_mesh(
+            dists[mode], rec_q, os.path.join(tmp, f"bf16_phase_{mode}.off"),
+            ply, DRIVER_GRID, MESH_SIGMA, MESH_CERTAINTY, device=device)
+        check(ok, f"no {mode} mesh was written")
+        verts, faces = mesh_io.load_mesh(ply)
+        faces = np.asarray(faces)
+        check(len(faces) > 0 and _watertight(np, faces)
+              and bool(np.isfinite(verts).all()),
+              f"the {mode} mesh is empty, not finite or not watertight")
+        meshes[mode] = (np.asarray(verts), faces)
+    c = launched["reconstruction"]
+    check(c["chain_head"] == (0, 5 * n_rec) and c["chain_pool"] == (0, 5 * n_rec),
+          f"reconstruction in bf16 mode: launches {c}, expected (0, "
+          f"{5 * n_rec}) each")
+    agree, delta = _mode_agreement(np, dists["bf16"], dists["fp32"])
+    samples = {k: metrics.sample_mesh_surface(v, f, 10000)
+               for k, (v, f) in meshes.items()}
+    chamfer = metrics.chamfer_distance(samples["bf16"], samples["fp32"])
+    hd = metrics.hausdorff_distance(samples["bf16"], samples["fp32"])
+    print(f"[bf16 mesh] phase 8's checkpoint, {len(rec_q)} grid-"
+          f"{DRIVER_GRID} queries in each mode ({n_rec} batches of {BATCH}, "
+          f"the same draws): same sign {agree:.6%}, max |diff| {delta:.3e}; "
+          f"faces bf16 {len(meshes['bf16'][1])}, fp32 "
+          f"{len(meshes['fp32'][1])}, both watertight; between the two "
+          f"meshes (10,000 samples each) Chamfer {chamfer:.6f}, Hausdorff "
+          f"{hd[2]:.6f} ({hd[0]:.6f} / {hd[1]:.6f})")
+    return launched
+
 
 
 def main() -> int:
@@ -1507,9 +1920,24 @@ def main() -> int:
     mlp_launches += mlp_maxpool.launches
     _, mesh_launches = phase_mesh(torch, np, device, cfg, model, pts,
                                   pts_pad, n)
-    mlp_maxpool.launches = 0
-    drv = phase_driver(torch, np, device)
-    mlp_launches += mlp_maxpool.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        mlp_maxpool.launches = 0
+        drv = phase_driver(torch, np, device, tmp)
+        mlp_launches += mlp_maxpool.launches
+        t9 = time.perf_counter()
+        from points2surf_tpu_torch.ops.kernels.chain_pool import (
+            chain_head, chain_pool)
+        from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+            pooled_tail_reductions)
+
+        bf16_runs = {f.__name__: f.launches_bf16
+                     for f in (chain_head, chain_pool, pooled_tail_reductions)}
+        check(not any(bf16_runs.values()),
+              f"a bf16 kernel launched in phases 1-8: {bf16_runs}")
+        bf = phase_bf16_kernels(torch, device)
+        bfl = phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n,
+                               queries, drv, tmp)
+        print(f"[bf16] phase 9 took {time.perf_counter() - t9:.1f} s")
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the query, train and driver paths: "
           f"{mlp_launches} "
@@ -1520,10 +1948,12 @@ def main() -> int:
     mlp_bytes = 4.0 * (b * n * cin + cin * cout + cout + b * cout)
     # chain_head and chain_pool: the five call sites of one query forward at
     # batch BATCH; pooled_tail: the five conv3 tails of one train step;
-    # mlp_maxpool: MLP_SHAPES[1]. No single PyTorch call computes any of
-    # the four functions, so library_ms is null. launches sums the paths
-    # (query phase 4, train phase 6, mesh phase 7, driver phase 8; each
-    # counted from 0 just before it), launches_by_path splits them.
+    # mlp_maxpool: MLP_SHAPES[1]; the *_bf16 entries the same in the bf16
+    # mode (phase 9), bound at the bf16 peak. No single PyTorch call
+    # computes any of these functions, so library_ms is null. launches sums
+    # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
+    # the bf16 query, train step and reconstruction of phase 9; each counted
+    # from 0 just before it), launches_by_path splits them.
     dl = drv["launches"]
     by_path = {
         "chain_head": {"query": launches["chain_head"],
@@ -1534,6 +1964,14 @@ def main() -> int:
                        "driver": dl["chain_pool"]},
         "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"]},
         "mlp_maxpool": {"all": mlp_launches},
+        "chain_head_bf16": {
+            "query": bfl["query"]["chain_head"][1],
+            "reconstruction": bfl["reconstruction"]["chain_head"][1]},
+        "chain_pool_bf16": {
+            "query": bfl["query"]["chain_pool"][1],
+            "reconstruction": bfl["reconstruction"]["chain_pool"][1]},
+        "pooled_tail_bf16": {
+            "train": bfl["train"]["pooled_tail_reductions"][1]},
     }
     entries = (
         ("chain_head", "chain_head.cu", "chain_kernel.py:187",
@@ -1548,10 +1986,21 @@ def main() -> int:
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
          mlp_bytes),
+        ("chain_head_bf16", "chain_head.cu", "chain_kernel.py:187",
+         bf["err"]["chain_head"], bf["head"], bf["head_plain"],
+         *bf["head_cost"]),
+        ("chain_pool_bf16", "chain_pool.cu", "chain_kernel.py:187",
+         bf["err"]["chain_pool"], bf["tail"], bf["tail_plain"],
+         *bf["tail_cost"]),
+        ("pooled_tail_bf16", "pooled_tail.cu", "train_tail.py:138",
+         bf["err"]["pooled_tail"], bf["tail_ms"], bf["tail_plain_ms"],
+         *bf["pooled_tail_cost"]),
     )
     kernels = []
     for name, src, tpu, err, ms, plain_ms, flop, nbytes in entries:
-        bound_ms, bound_by = _bound(flop, nbytes)
+        bound_ms, bound_by = _bound(
+            flop, nbytes,
+            PEAK_FLOPS_BF16 if name.endswith("_bf16") else PEAK_FLOPS)
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -1,7 +1,9 @@
 // Hopper machinery shared by the port's pooled-layer kernels (mlp_maxpool.cu,
 // chain_pool.cu, pooled_tail.cu): TMA loads and mbarriers, the 3xTF32 wgmma
 // product of one K chunk on 128-byte swizzled K-major tiles, the W^T hi/lo
-// prologue, and the host's tensor maps and grid split.
+// prologue, and the host's tensor maps and grid split; for the bf16-operand
+// mode, the bf16 wgmma product, the bf16 W^T prologue and the conversion of
+// a TMA'd fp32 chunk to a bf16 tile.
 //
 // Each kernel: a block owns one column tile of BN outputs and walks
 // 128-point slabs of one batch row. A slab arrives as K chunks of 32 fp32
@@ -14,10 +16,20 @@
 // hi (in place) and lo and issue wgmma m64n128k8 three times per k step:
 // x.W = hi.hi + hi.lo + lo.hi in fp32 accumulators, ~2^-21 of each product
 // short of fp32 (the dropped lo.lo term, the tf32 truncation of lo).
+//
+// bf16-operand mode (P2S_*_PREC=default in the JAX package): a 128-byte
+// swizzled K-major row holds 64 bf16, so one K chunk of a bf16 tile is 64
+// wide and takes four wgmma m64n128k16 of bf16 x bf16 into the same fp32
+// accumulators. One k16 step is 32 bytes, as one tf32 k8 step is, so the
+// descriptors, the ring and the TMA helpers are shared. Operands are
+// rounded to the nearest bf16, ties to even (__float2bfloat16_rn, XLA's
+// astype), not with the cvt.rna of the tf32 split; products of bf16 values
+// are exact in fp32.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -34,6 +46,9 @@ constexpr int CONSUMERS = 256;       // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int X_BYTES = BM * BK * 4;   // an activation chunk
 constexpr int W_BYTES = BN * BK * 4;   // a W^T chunk, hi or lo
+constexpr int BK16 = 64;               // bf16 K chunk: one 128-byte row
+constexpr int XB_BYTES = BM * BK16 * 2;  // a bf16 activation chunk
+constexpr int WB_BYTES = BN * BK16 * 2;  // a bf16 W^T chunk
 constexpr int RED_BYTES = 8 * BN * 4;  // the 8 consumer warps' pools
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -102,6 +117,17 @@ __device__ __forceinline__ float tf32_rna(float v) {
   return __uint_as_float(r);
 }
 
+// round to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float bf16_rne(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// two floats rounded to bf16 (ties to even), lo at the lower address
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
 // 8-row atoms of 1024 bytes (stride byte offset 1024), leading byte offset
 // unused, layout type 1 (B128). One k step of 8 tf32 is 32 bytes further.
@@ -131,6 +157,38 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16) B (16 x 128, bf16), both from
+// shared memory, both K-major (no transpose)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -195,6 +253,39 @@ split_weights_kernel(const float* __restrict__ w, int cin, int cout, int kp,
   }
 }
 
+// Prologue of the bf16 mode: W (cin, cout) -> W^T as bf16 (cout, kp),
+// rounded to the nearest (ties to even), zero for k >= cin; and
+// out[:out_size] = -inf. Blocks of 32 x 8 threads over 32 x 32 tiles of W.
+__global__ void __launch_bounds__(256)
+bf16_weights_kernel(const float* __restrict__ w, int cin, int cout, int kp,
+                    __nv_bfloat16* __restrict__ w_bf,
+                    float* __restrict__ out, size_t out_size) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32;
+  const int j0 = blockIdx.y * 32;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) {
+    const int k = k0 + r;
+    const int j = j0 + tx;
+    tile[r][tx] = (k < cin && j < cout) ? w[(size_t)k * cout + j] : 0.f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int j = j0 + r;
+    const int k = k0 + tx;
+    if (j < cout && k < kp) {
+      w_bf[(size_t)j * kp + k] = __float2bfloat16_rn(tile[tx][r]);
+    }
+  }
+  const size_t stride = (size_t)gridDim.x * gridDim.y * 256;
+  for (size_t i = (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * 256 +
+                  ty * 32 + tx;
+       i < out_size; i += stride) {
+    out[i] = -CUDART_INF_F;
+  }
+}
+
 // Consumer warpgroup g (thread t of 128), one K chunk: split its 64 rows of
 // the chunk at x (BM x BK fp32, swizzled; becomes the hi part) into tf32 hi
 // and lo (at x_lo), then acc += x . W^T over the chunk's BK k, with the
@@ -242,6 +333,60 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[64], uint8_t* x,
   fence_acc(acc);
 }
 
+// Consumer warpgroup g (thread t of 128): its 64 rows of two fp32 chunks
+// (x0: columns 0-31, x1: columns 32-63 of a 64-wide K chunk; BM x BK each,
+// as TMA writes them with the 128-byte swizzle) rounded to bf16 into the
+// bf16 tile xb (BM x 64, the same swizzle). The 16-byte unit p of row r
+// holds logical unit p ^ (r % 8) in either layout: bf16 columns 8 u .. 8 u
+// + 7 are fp32 units 2 u and 2 u + 1 of chunk u / 4 (u taken mod 4). Each
+// thread writes four whole units, so a row's 8 threads store 128
+// contiguous bytes. Ends with the proxy fence and the warpgroup's barrier:
+// the tile is then ready for wgmma.
+__device__ __forceinline__ void chunk_to_bf16(const uint8_t* x0,
+                                              const uint8_t* x1, uint8_t* xb,
+                                              int g, int t) {
+#pragma unroll
+  for (int q = 0; q < BM / 2 * 8 / 128; ++q) {
+    const int i = t + 128 * q;
+    const int r = (BM / 2) * g + i / 8;
+    const int p = i % 8;
+    const int u = p ^ (r % 8);
+    const uint8_t* src = (u < 4 ? x0 : x1) + 128 * r;
+    const int f = 2 * (u % 4);
+    const float4 a =
+        *reinterpret_cast<const float4*>(src + 16 * (f ^ (r % 8)));
+    const float4 b =
+        *reinterpret_cast<const float4*>(src + 16 * ((f + 1) ^ (r % 8)));
+    *reinterpret_cast<uint4*>(xb + 128 * r + 16 * p) =
+        make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
+                   pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
+  }
+  // generic-proxy writes -> visible to wgmma (async proxy), then the
+  // warpgroup's own barrier
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + g) : "memory");
+}
+
+// Consumer warpgroup g, one 64-wide K chunk in bf16: acc += x . W^T with its
+// 64 rows of the bf16 tile xb (BM x 64, swizzled) and the chunk's bf16 W^T
+// tile wb (BN x 64, swizzled): four wgmma m64n128k16, also over k past kp
+// (TMA's zeros). Same accumulator layout as mma_chunk.
+__device__ __forceinline__ void mma_chunk_bf16(float (&acc)[64],
+                                               const uint8_t* xb,
+                                               const uint8_t* wb, int g) {
+  const uint64_t da = sw128_desc(xb + g * (XB_BYTES / 2));
+  const uint64_t db = sw128_desc(wb);
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < BK16 / 16; ++kk) {
+    wgmma_bf16(acc, da + 2 * kk, db + 2 * kk);  // 32 bytes further each
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+}
+
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                    cuuint32_t, void*, const cuuint64_t*,
                                    const cuuint64_t*, const cuuint32_t*,
@@ -270,15 +415,17 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// fp32 tensor map with 128-byte swizzle; dims and box innermost first,
-// strides in bytes for dims 1.. . Out-of-bounds elements read as zero.
+// tensor map (fp32 unless `type` says otherwise) with 128-byte swizzle;
+// dims and box innermost first, strides in bytes for dims 1.. .
+// Out-of-bounds elements read as zero.
 bool encode(CUtensorMap* map, const void* base, int rank,
             const cuuint64_t* dims, const cuuint64_t* strides,
-            const cuuint32_t* box) {
+            const cuuint32_t* box,
+            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   const EncodeTiledFn fn = encode_tiled();
   const cuuint32_t ones[3] = {1, 1, 1};
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+         fn(map, type, rank,
             const_cast<void*>(base), dims, strides, box, ones,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -301,6 +448,29 @@ bool encode_ring_maps(CUtensorMap (&maps)[3], const void* x, int batch, int n,
   return encode(&maps[0], x, 3, x_dims, x_strides, x_box) &&
          encode(&maps[1], w_hi, 2, w_dims, w_strides, w_box) &&
          encode(&maps[2], w_lo, 2, w_dims, w_strides, w_box);
+}
+
+// The bf16 mode's two tensor maps: the activation (batch, n, x_cols) by
+// (128-byte rows, BM, 1) boxes, fp32 (x_bf16 == false: 32-column boxes) or
+// bf16 (64-column boxes); W^T bf16 (cout, kp) by (BK16, BN) boxes. Row
+// strides must be multiples of 16 bytes.
+bool encode_bf16_maps(CUtensorMap (&maps)[2], const void* x, bool x_bf16,
+                      int batch, int n, int x_cols, const void* w_bf,
+                      int cout, int kp) {
+  const cuuint64_t esize = x_bf16 ? 2 : 4;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)x_cols, (cuuint64_t)n,
+                                (cuuint64_t)batch};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)x_cols * esize,
+                                   (cuuint64_t)x_cols * esize * n};
+  const cuuint32_t x_box[3] = {(cuuint32_t)(128 / esize), BM, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)kp, (cuuint64_t)cout};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)kp * 2};
+  const cuuint32_t w_box[2] = {BK16, BN};
+  return encode(&maps[0], x, 3, x_dims, x_strides, x_box,
+                x_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32) &&
+         encode(&maps[1], w_bf, 2, w_dims, w_strides, w_box,
+                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // Splits of the point axis so that tiles * splits blocks cover `sms` SMs

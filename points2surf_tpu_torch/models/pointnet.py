@@ -21,6 +21,15 @@ bn2 -> relu -> conv3 -> bn3 -> pool``.
   CUDA kernel on a GPU), with the hand-derived backward of
   ``_LinearPoolReductions``, which never forms a (B, n, C) tensor.
 
+Both kernels have two numerics classes, which their wrappers choose at
+each call from the JAX package's variables: ``P2S_EVAL_CHAIN_PREC`` for the
+eval chains, ``P2S_PALLAS_TAIL_PREC`` for the train tails. Unset or
+``highest`` is the fp32 class (the port's default); ``default`` rounds
+every operand of the kernels' products to bf16 and accumulates in fp32
+(the JAX package's default). Everything else here stays fp32, the train
+tail's backward included: only the forward's reductions (and the ``mean``
+saved for the backward) come from bf16 products.
+
 BatchNorm in train mode follows flax: the biased batch variance normalizes
 and updates the running variance, ``r = 0.9 r + 0.1 batch``. The
 multi-scale branch raises.

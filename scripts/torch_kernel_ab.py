@@ -8,16 +8,19 @@ Imports ``points2surf_tpu_torch`` from ``--root`` (its kernels build there),
 runs ``chain_pool`` (max pool) at the query forward's five call sites at
 batch 4096, ``mlp_maxpool`` at four encoder-tail shapes and
 ``pooled_tail`` at the train step's three conv3-tail shapes at batch 1000
-on seeded inputs (``--kernels`` picks some of the three), prints each
-call's mean device time (CUDA events) and saves the outputs. With
-``--compare`` it also prints, per case, whether the outputs are
-bit-identical to the other file's and their max abs difference. Run the
-two checkouts in turns (old, new, new, old) in one call on one card.
+on seeded inputs, ``chain_pool_bf16`` and ``pooled_tail_bf16`` the same in
+the bf16-operand mode (``--kernels`` picks some of the five; a checkout
+older than the bf16 mode has only the other three), prints each call's
+mean device time (CUDA events) and saves the outputs. With ``--compare``
+it also prints, per case, whether the outputs are bit-identical to the
+other file's and their max abs difference. Run the two checkouts in turns
+(old, new, new, old) in one call on one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import subprocess
 import sys
 
@@ -44,9 +47,11 @@ def _events_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _chain_pool(torch, dev, root, outs):
+def _chain_pool(torch, dev, root, outs, bf16=False):
     from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool
 
+    kw = {"bf16_operands": True} if bf16 else {}
+    name = "chain_pool_bf16" if bf16 else "chain_pool"
     gen = torch.Generator(device=dev).manual_seed(0)
     chains_ms = 0.0
     for cin, n, count in CHAIN_SITES:
@@ -58,13 +63,13 @@ def _chain_pool(torch, dev, root, outs):
             c = torch.randn((co,), generator=gen, device=dev) * 0.1
             layers.append((w, a, c))
             ci = co
-        key = f"chain_pool {BATCH}x{n}x{cin}"
-        outs[key] = chain_pool(x, layers).cpu()
-        ms = _events_ms(torch, lambda: chain_pool(x, layers), 5)
+        key = f"{name} {BATCH}x{n}x{cin}"
+        outs[key] = chain_pool(x, layers, **kw).cpu()
+        ms = _events_ms(torch, lambda: chain_pool(x, layers, **kw), 5)
         chains_ms += count * ms
         print(f"{root}: {key} {ms:.4f} ms")
         del x
-    print(f"{root}: five chains of one batch-{BATCH} forward "
+    print(f"{root}: {name}: five chains of one batch-{BATCH} forward "
           f"{chains_ms:.4f} ms")
 
 
@@ -83,10 +88,12 @@ def _mlp_maxpool(torch, dev, root, outs):
         print(f"{root}: {key} {ms:.4f} ms")
 
 
-def _pooled_tail(torch, dev, root, outs):
+def _pooled_tail(torch, dev, root, outs, bf16=False):
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
         pooled_tail_reductions)
 
+    kw = {"bf16_operands": True} if bf16 else {}
+    name = "pooled_tail_bf16" if bf16 else "pooled_tail"
     gen = torch.Generator(device=dev).manual_seed(2)
     tails_ms = 0.0
     for n, count in TAIL_SITES:
@@ -94,19 +101,22 @@ def _pooled_tail(torch, dev, root, outs):
                                    device=dev))
         w = torch.randn((128, NET), generator=gen, device=dev) / 128 ** 0.5
         b = torch.randn((NET,), generator=gen, device=dev) * 0.1
-        key = f"pooled_tail {TRAIN_BATCH}x{n}x128->{NET}"
-        for name, o in zip(TAIL_NAMES, pooled_tail_reductions(x, w, b)):
-            outs[f"{key} {name}"] = o.cpu()
-        ms = _events_ms(torch, lambda: pooled_tail_reductions(x, w, b), 10)
+        key = f"{name} {TRAIN_BATCH}x{n}x128->{NET}"
+        for out, o in zip(TAIL_NAMES, pooled_tail_reductions(x, w, b, **kw)):
+            outs[f"{key} {out}"] = o.cpu()
+        ms = _events_ms(torch, lambda: pooled_tail_reductions(x, w, b, **kw),
+                        10)
         tails_ms += count * ms
         print(f"{root}: {key} {ms:.4f} ms")
         del x
-    print(f"{root}: five conv3 tails of one batch-{TRAIN_BATCH} train "
-          f"step {tails_ms:.4f} ms")
+    print(f"{root}: {name}: five conv3 tails of one batch-{TRAIN_BATCH} "
+          f"train step {tails_ms:.4f} ms")
 
 
 KERNELS = {"chain_pool": _chain_pool, "mlp_maxpool": _mlp_maxpool,
-           "pooled_tail": _pooled_tail}
+           "pooled_tail": _pooled_tail,
+           "chain_pool_bf16": functools.partial(_chain_pool, bf16=True),
+           "pooled_tail_bf16": functools.partial(_pooled_tail, bf16=True)}
 
 
 def main() -> int:
