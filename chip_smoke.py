@@ -62,7 +62,22 @@ the reconstruction of a 256^3 mesh:
    batch 1000 (patches/s, 5 bf16 launches per step) and one step at batch
    64 on the card against the CPU, both in bf16 mode; phase 8's trained
    checkpoint reconstructed at grid 128 in both modes (sign agreement,
-   faces, Chamfer and Hausdorff distance between the two meshes).
+   faces, Chamfer and Hausdorff distance between the two meshes);
+10. the options of the landed slices: each kernel against its plain
+   version at large_kNN's and small_kNN's patch sizes (n = 1200, 75);
+   ball mode (r = 0.05 and 0.2) on the bench model: the query slice on the
+   card against the CPU with the same draws, queries/s at batch 4096 with
+   the share of tiles that certify and the chain launches per batch, the
+   chain kernels at a ball batch's call sites and ``pooled_tail`` at a
+   ball-mode train step's tails (duplicate rows: first-index args,
+   bit-identical reruns); the uniform sub-sample in train_p2s_uniform.sh's
+   and train_p2s_max.sh's models (one step at batch 64 against the CPU in
+   float64, patches/s at batch 1000, one ``pooled_tail`` launch per trunk
+   and encoder per step); bf16 activations (queries/s at batch 4096 with
+   128 of the batch's rows against the CPU, patches/s at batch 1000 and a
+   step at batch 64 against the CPU, no kernel launched); ``full_train``
+   at the reference's defaults (ball mode) for one epoch and ``full_eval``
+   with its reconstruction at grid 64.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -132,6 +147,34 @@ DRIVER_PROFILE = 10  # reconstruction batches traced after the run
 BF16_ENV = {"chain": "P2S_EVAL_CHAIN_PREC", "tail": "P2S_PALLAS_TAIL_PREC"}
 BF16_WARMUP = 2
 BF16_TIMED = 5
+# phase 10: the options of the landed slices. Ball mode at two radii on the
+# bench model (the tile depth then is 8,192 and 18,432 on the padded cloud)
+BALL_RADII = (0.05, 0.2)
+OPT_WARMUP = 2
+OPT_TIMED = 5
+# the patch sizes of experiments/train_p2s_{large,small}_kNN.sh: new chain
+# and tail call sites
+KNN_SITES = (1200, 75)
+# experiments/train_p2s_uniform.sh and _max.sh: the uniform sub-sample with
+# non-shared transformers, and the same without the point STN
+UNIFORM_CONFIGS = {"uniform": {"shared_transformation": False},
+                   "max": {"shared_transformation": False,
+                           "use_point_stn": False}}
+# bf16 activations, card against CPU: the CPU's bf16 matmuls are slow, so
+# the query's first BF16_ACT_ROWS rows (eval rows are independent) and a
+# train step at SLICE_TRAIN_BATCH
+BF16_ACT_ROWS = 128
+U_BF16 = 2.0 ** -8  # bf16 unit round-off
+# the CLIs at the reference's defaults (ball mode, r = 0.05) but one epoch
+# and batch CLI_BATCH (the default 2 would take 1,000 steps), then full_eval
+# with the reconstruction at grid CLI_GRID
+CLI_BATCH = 50
+CLI_GRID = 64
+# the experiments' outputs: the reference's default list adds 'imp_surf', a
+# third prediction, and compute_loss then holds all B * 3 predictions
+# against B targets and fails, in the JAX package too
+CLI_OUTPUTS = ("imp_surf_magnitude", "imp_surf_sign", "patch_pts_ids",
+               "p_index")
 # the whole chain in bf16 against its plain version, rtol and atol x
 # max|ref|: one bf16 ulp (2^-8) of the output, which is what an h1 or h2
 # operand one ulp off (the two fp32 sums straddle a rounding boundary) can
@@ -478,15 +521,17 @@ def phase_tail_kernels(torch, device):
     return tail, mlp
 
 
-def _bench_model(torch, device):
-    """bench.py's model with seeded default init and randomized BN stats."""
+def _bench_model(torch, device, **variant):
+    """bench.py's model (or the ``variant`` flags of another experiment)
+    with seeded default init and randomized BN stats."""
     from points2surf_tpu_torch.models.p2s import PointsToSurfModel
     from points2surf_tpu_torch.models.pointnet import BN
 
     torch.manual_seed(SEED)
-    model = PointsToSurfModel(net_size_max=NET, output_dim=2,
-                              use_point_stn=True, use_feat_stn=True,
-                              shared_transformation=True)
+    flags = dict(use_point_stn=True, use_feat_stn=True,
+                 shared_transformation=True)
+    flags.update(variant)
+    model = PointsToSurfModel(net_size_max=NET, output_dim=2, **flags)
     gen = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for mod in model.modules():
@@ -675,9 +720,11 @@ def _train_cfg():
                        sub_sample_size=1000)
 
 
-def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
+def phase_train_slice(torch, np, device, model, pts_pad, n, queries,
+                      cfg=None, tag="train-slice"):
     """One fused train step on the GPU against the same step on the CPU in
-    float64, from the same weights, momentum buffers, draws and rotations.
+    float64, from the same weights, momentum buffers, draws and rotations
+    (extraction by ``cfg``, ``_train_cfg()`` unless given).
 
     The CPU runs the same code in float64 (the plain versions take any
     float type), which makes it the exact reference: in float32 the CPU
@@ -689,8 +736,9 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     has two places where order is data: the patch and sub-sample rows
     (neighbours at nearly equal distances), and the max pools' arg decisions
     (a flipped arg routes one row's gradient elsewhere). So the extractions
-    are compared as point sets, and the CPU step then trains on the GPU's
-    batch; the GPU step records the kernel's arg indices, and the CPU step's
+    are compared as point sets, and the CPU steps (float64, and float32 for
+    the CPU's own float32 error, a floor for the card's gradients) then
+    train on the GPU's batch; the GPU step records the kernel's arg indices, and the CPU step's
     plain tail uses them after checking that each is an arg of the CPU's own
     values (the value at it is the CPU's max or min within rtol 1e-4 / atol
     1e-4 * max|c|).
@@ -705,16 +753,16 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     from points2surf_tpu_torch.models.pointnet import _STNTrunk
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
         pooled_tail_reductions_reference)
-    from points2surf_tpu_torch.ops.patches import TrainDraws, draw_batch
+    from points2surf_tpu_torch.ops.patches import draw_batch
     from points2surf_tpu_torch.train.trainer import make_train_step
 
-    cfg = _train_cfg()
+    cfg = cfg or _train_cfg()
     b = SLICE_TRAIN_BATCH
     rs = np.random.RandomState(SEED + 3)
     q = torch.from_numpy(queries[:b])
     gt = torch.from_numpy((rs.randn(b) * 0.05).astype(np.float32))
     draws = draw_batch(torch.Generator().manual_seed(SEED + 3), b,
-                       pts_pad.shape[0], cfg, train=True)
+                       pts_pad.shape[0], cfg, train=True, n_valid=n)
     model = copy.deepcopy(model)
     with torch.no_grad():
         for mod in model.modules():
@@ -725,8 +773,9 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     momentum = {k: torch.from_numpy((rs.randn(*p.shape) * 1e-3).astype(
         np.float32)) for k, p in model.named_parameters()}
     real = pn.pooled_tail_reductions
-    recorded = []
+    recorded, queue = [], []
     stats = {"args": 0, "own_arg_differs": 0, "bad_args": 0}
+    counting = [True]
 
     def record(x, w, bias):
         out = real(x, w, bias)
@@ -736,29 +785,34 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     def replay(x, w, bias):
         cmax, amax, cmin, amin, rsum, rsq = (
             pooled_tail_reductions_reference(x, w, bias))
-        gmax, gmin = recorded.pop(0)
+        gmax, gmin = queue.pop(0)
         c = torch.matmul(x, w) + bias
         tol = 1e-4 * float(c.abs().max())
         pooled = []
         for own, val, g in ((amax, cmax, gmax), (amin, cmin, gmin)):
             at = torch.gather(c, 1, g.long()[:, None, :])[:, 0]
-            stats["args"] += g.numel()
-            stats["own_arg_differs"] += int((own != g).sum())
-            stats["bad_args"] += int(((at - val).abs()
-                                      > tol + 1e-4 * val.abs()).sum())
+            if counting[0]:
+                stats["args"] += g.numel()
+                stats["own_arg_differs"] += int((own != g).sum())
+                stats["bad_args"] += int(((at - val).abs()
+                                          > tol + 1e-4 * val.abs()).sum())
             pooled.append(at)
         return pooled[0], gmax, pooled[1], gmin, rsum, rsq
 
     res, batches = [], []
     f64 = torch.float64
+    cpu = torch.device("cpu")
+    # the card in float32, then the CPU in float64 (the reference) and in
+    # float32 (the CPU's own float32 error, a floor for the card's)
     for dev, dtype, hook in ((device, torch.float32, record),
-                             (torch.device("cpu"), f64, replay)):
+                             (cpu, f64, replay), (cpu, torch.float32, replay)):
+        queue[:] = recorded
+        counting[0] = dtype == f64
         m = copy.deepcopy(model).to(device=dev, dtype=dtype)
         steps = make_train_step(m, OUTPUTS, lr=0.01, momentum=0.9,
                                 patch_cfg=cfg)
         steps.load_sgd_state(momentum, None)
-        d = TrainDraws(draws.offset.to(dev), draws.logu.to(dev, dtype),
-                       draws.rot.to(dev, dtype))
+        d = draws.to(dev, dtype)
         pn.pooled_tail_reductions = hook
         try:
             t0 = time.perf_counter()
@@ -766,8 +820,8 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
                 torch.from_numpy(pts_pad).to(dev, dtype), q.to(dev, dtype),
                 n, gt.to(dev, dtype), d)
             batches.append({k: v.cpu() for k, v in batch.items()})
-            if dtype == f64:  # the GPU's rows, in the GPU's order
-                batch = {k: v.to(f64) if v.is_floating_point() else v
+            if dev == cpu:  # the GPU's rows, in the GPU's order
+                batch = {k: v.to(dtype) if v.is_floating_point() else v
                          for k, v in batches[0].items()}
             losses, metrics = steps.train_step(batch)
             if dev.type == "cuda":
@@ -775,7 +829,7 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
             dt = time.perf_counter() - t0
         finally:
             pn.pooled_tail_reductions = real
-        print(f"[train-slice] {dev.type} {str(dtype)[6:]} step at batch {b}: "
+        print(f"[{tag}] {dev.type} {str(dtype)[6:]} step at batch {b}: "
               f"{dt:.2f} s")
         named = dict(m.named_parameters())
         res.append({
@@ -785,19 +839,20 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
             "state": {k: v.cpu().to(f64) for k, v in m.state_dict().items()},
         })
         del m, steps
-    check(not recorded, "the CPU step ran fewer pooled tails than the GPU")
+        check(dev != cpu or not queue,
+              "the CPU step ran fewer pooled tails than the GPU")
     for k in ("patch_pts_ps", "pts_sub_sample_ms"):
         e = float((_sorted_points(torch, batches[0][k].to(f64))
                    - _sorted_points(torch, batches[1][k])).abs().max())
-        print(f"[train-slice] extraction {k} {tuple(batches[1][k].shape)} "
+        print(f"[{tag}] extraction {k} {tuple(batches[1][k].shape)} "
               f"GPU vs CPU as point sets: max_abs_err {e:.3e} (atol 1e-5)")
         check(e <= 1e-5, f"train extraction {k} differs between GPU and CPU")
     for k in ("patch_radius_ms", "imp_surf_query_point_ms"):
         e = float((batches[0][k].to(f64) - batches[1][k]).abs().max())
-        print(f"[train-slice] extraction {k} GPU vs CPU max_abs_err {e:.3e}")
+        print(f"[{tag}] extraction {k} GPU vs CPU max_abs_err {e:.3e}")
         check(e <= 1e-5, f"train extraction {k} differs between GPU and CPU")
-    g, c = res
-    print(f"[train-slice] arg decisions {stats['args']}: the GPU's index is "
+    g, c, c32 = res
+    print(f"[{tag}] arg decisions {stats['args']}: the GPU's index is "
           f"not the CPU's own first arg in {stats['own_arg_differs']} "
           f"(near-ties), and not an arg of the CPU values in "
           f"{stats['bad_args']}")
@@ -805,17 +860,17 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
     check(bool(torch.isfinite(g["losses"]).all()), "non-finite train loss")
     err = float(((g["losses"] - c["losses"]).abs()
                  / c["losses"].abs()).max())
-    print(f"[train-slice] losses GPU {g['losses'].tolist()} CPU "
+    print(f"[{tag}] losses GPU {g['losses'].tolist()} CPU "
           f"{c['losses'].tolist()}: max rel err {err:.3e} (rtol 1e-4)")
     check(err <= 1e-4, "train losses differ between GPU and CPU")
     for k, v in c["metrics"].items():
         w = g["metrics"][k]
         same = bool(torch.isclose(w, v, rtol=1e-4, atol=0.0, equal_nan=True))
-        print(f"[train-slice] metric {k}: GPU {w.item():.6f} CPU "
+        print(f"[{tag}] metric {k}: GPU {w.item():.6f} CPU "
               f"{v.item():.6f}")
         check(same, f"train metric {k} differs between GPU and CPU")
     g_max = max(float(t.abs().max()) for t in c["grads"].values())
-    worst, bad_tensors = (0.0, ""), []
+    worst, bad_tensors, floored = (0.0, ""), [], []
     for k in names:
         gg, cg = g["grads"][k], c["grads"][k]
         scale = float(cg.abs().max())
@@ -826,22 +881,31 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries):
         e = (gg - cg).abs()
         worst = max(worst, (float(e.max()) / scale, k))
         if bool((e > 1e-3 * scale + 1e-3 * cg.abs()).any()):
-            bad_tensors.append(k)
-    print(f"[train-slice] gradients of {len(names)} tensors: worst max|err| "
-          f"/ max|g| {worst[0]:.3e} ({worst[1]}); {len(bad_tensors)} outside "
-          f"rtol 1e-3 / atol 1e-3*max|g| {bad_tensors[:5]}")
+            # a float32 step is held no closer to float64 than the CPU's
+            # own float32 step comes (a ReLU input within rounding of 0)
+            own = float((c32["grads"][k] - cg).abs().max())
+            (floored if float(e.max()) <= 2 * own else bad_tensors).append(
+                (k, float(e.max()) / scale, own / scale))
+    print(f"[{tag}] gradients of {len(names)} tensors: worst max|err| "
+          f"/ max|g| {worst[0]:.3e} ({worst[1]}); outside rtol 1e-3 / atol "
+          f"1e-3*max|g| but within twice the CPU float32 step's own error "
+          f"(tensor, card err / max|g|, CPU float32 err / max|g|): "
+          f"{floored[:5]}; outside both {bad_tensors[:5]}")
     check(not bad_tensors, "gradients differ between GPU and CPU")
-    bad_state, worst = [], 0.0
+    bad_state, floored, worst = [], [], 0.0
     for k, v in c["state"].items():
         if k.endswith("num_batches_tracked"):
             continue
         e = (g["state"][k] - v).abs()
         worst = max(worst, float(e.max()))
         if bool((e > 1e-6 + 1e-4 * v.abs()).any()):
-            bad_state.append(k)
-    print(f"[train-slice] updated parameters and running statistics: max abs "
-          f"err {worst:.3e}; {len(bad_state)} tensors outside rtol 1e-4 / "
-          f"atol 1e-6 {bad_state[:5]}")
+            own = float((c32["state"][k] - v).abs().max())
+            (floored if float(e.max()) <= 2 * own else bad_state).append(
+                (k, float(e.max()), own))
+    print(f"[{tag}] updated parameters and running statistics: max abs "
+          f"err {worst:.3e}; outside rtol 1e-4 / atol 1e-6 but within twice "
+          f"the CPU float32 step's own error (tensor, card err, CPU float32 "
+          f"err): {floored[:5]}; outside both {bad_state[:5]}")
     check(not bad_state, "updated state differs between GPU and CPU")
 
 
@@ -1258,10 +1322,10 @@ def _evaluator_card_vs_cpu(torch, np, device, evaluator, data, models, tmp,
         for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
             gen = torch.Generator().manual_seed(SEED + 8)
 
-            def draw(g, b, n, cfg, small_cloud=False, train=False, dev=dev,
-                     gen=gen):
-                d = real_draw(gen, b, n, cfg, small_cloud, train)
-                return type(d)(*(t.to(dev) for t in vars(d).values()))
+            def draw(g, b, n, cfg, small_cloud=False, train=False,
+                     n_valid=None, dev=dev, gen=gen):
+                return real_draw(gen, b, n, cfg, small_cloud, train,
+                                 n_valid).to(dev)
 
             evaluator.draw_batch = draw
             outs[tag] = os.path.join(tmp, "first_batches_" + tag)
@@ -1796,8 +1860,7 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
                                  patch_cfg=_train_cfg())
             if batch is None:  # on the card, then the same rows on the CPU
                 batch = st.extract_train_batch(
-                    pts_t, q_all[:b], n, gt[:b], type(draws)(
-                        *(t.to(device) for t in vars(draws).values())))
+                    pts_t, q_all[:b], n, gt[:b], draws.to(device))
             losses, _ = st.train_step({k: v.to(dev)
                                        for k, v in batch.items()})
             g = {k: p.grad.cpu() for k, p in m.named_parameters()}
@@ -1863,6 +1926,500 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
           f"{hd[2]:.6f} ({hd[0]:.6f} / {hd[1]:.6f})")
     return launched
 
+
+
+def _first_index_check(torch, recorded, tag):
+    """pooled_tail at the train tails ``recorded`` from a ball-mode step:
+    each call rerun bit-identical, and where x holds duplicate rows (the pad
+    slots on the query point) every max and min arg is the first of its
+    duplicates, as JAX's argmax takes it. Returns the duplicate-row share."""
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+
+    dups = rows = 0
+    for (shape, cout), (x, w, b) in sorted(recorded.items()):
+        got = pooled_tail_reductions(x, w, b)
+        again = pooled_tail_reductions(x, w, b)
+        torch.cuda.synchronize()
+        for g, a in zip(got, again):
+            check(torch.equal(g, a), f"pooled_tail {shape}: a rerun differs")
+        first = torch.empty(x.shape[:2], dtype=torch.int64, device=x.device)
+        ar = torch.arange(x.shape[1], device=x.device)
+        for i in range(x.shape[0]):
+            _, inv = torch.unique(x[i], dim=0, return_inverse=True)
+            low = torch.full((int(inv.max()) + 1,), x.shape[1],
+                             dtype=torch.int64, device=x.device)
+            first[i] = low.scatter_reduce(0, inv, ar, "amin")[inv]
+        dups += int((first != ar).sum())
+        rows += x.shape[0] * x.shape[1]
+        for a in (got[1], got[3]):
+            a = a.long()
+            check(bool((torch.gather(first, 1, a) == a).all()),
+                  f"pooled_tail {shape}: an arg is not the first of its "
+                  f"duplicate rows")
+        print(f"[{tag}] pooled_tail B={shape[0]} n={shape[1]} 128->{cout}: "
+              f"{int((first != ar).sum())} of {x.shape[0] * x.shape[1]} rows "
+              f"duplicate an earlier one; every arg the first of its "
+              f"duplicates; rerun bit-identical")
+    return dups / max(rows, 1)
+
+
+def phase_option_kernels(torch, device):
+    """Phase 10, kernels at the new call sites: chain_head and layer 3 at
+    the query batch with large_kNN's and small_kNN's patch sizes (n = 1200,
+    75; Cin 3 and 64; both pools), pooled_tail at the train batch with them
+    (the value at each arg is the pool; reruns bit-identical)."""
+    import types
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    dgen = torch.Generator(device=device).manual_seed(SEED + 21)
+    sites = types.SimpleNamespace(chain={}, tail={})
+    for n in KNN_SITES:
+        for cin in (3, 64):
+            x = torch.randn((BATCH, n, cin), generator=dgen, device=device)
+            layers = _random_chain(torch, gen, cin, device)
+            for sym in ("max", "sum"):
+                sites.chain[((BATCH, n, cin), sym, False, NET)] = (x, layers)
+        x = torch.relu(torch.randn((TRAIN_BATCH, n, 128), generator=gen))
+        w = torch.randn((128, NET), generator=gen) / 128 ** 0.5
+        b = torch.randn((NET,), generator=gen) * 0.1
+        sites.tail[((TRAIN_BATCH, n, 128), NET)] = tuple(
+            t.to(device) for t in (x, w, b))
+    err = _driver_sites_check(torch, sites, "options kernel")
+    _first_index_check(torch, sites.tail, "options kernel")
+    return err
+
+
+def phase_ball(torch, np, device, model, pts_pad, n, queries):
+    """Phase 10, ball mode on the bench model at each of BALL_RADII: the
+    query slice on the card against the CPU with the same draws (ball
+    priorities included: the same patches in most rows, all in their balls,
+    and the model on the card's batch against the CPU); queries/s at batch BATCH with the share of tiles
+    that certify and the chain launches per batch; the chain kernels at the
+    call sites of a ball-mode batch, and pooled_tail at the tails of a
+    ball-mode train step (duplicate rows: first-index args)."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.infer.query import make_sdf_query_fn
+    from points2surf_tpu_torch.ops import patches
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    cpu = torch.device("cpu")
+    model_cpu = copy.deepcopy(model).to(cpu)
+    pts_t = torch.from_numpy(pts_pad).to(device)
+    q_all = torch.from_numpy(queries).to(device)
+    res = {"err": {"chain_head": 0.0, "chain_pool": 0.0, "pooled_tail": 0.0},
+           "launches": {"chain_head": 0, "chain_pool": 0}, "qps": {}}
+
+    def batch_queries(i, rows=BATCH):
+        s = (i * rows) % (len(queries) - rows)
+        return q_all[s:s + rows]
+
+    for r in BALL_RADII:
+        cfg = patches.PatchConfig(points_per_patch=300, patch_radius=r,
+                                  sub_sample_size=1000,
+                                  subsample_candidates=4)
+        depth = patches._ball_tile_candidates(cfg, len(pts_pad))
+        q = torch.from_numpy(queries[:256])
+        out = []
+        for dev in (device, cpu):
+            draws = patches.draw_batch(
+                torch.Generator().manual_seed(SEED + 30), len(q),
+                len(pts_pad), cfg, n_valid=n).to(dev)
+            batch = patches.extract_patches(
+                torch.from_numpy(pts_pad).to(dev), q.to(dev), n, draws,
+                cfg=cfg)
+            out.append({k: v.cpu() for k, v in batch.items()})
+        g, c = out
+        e = float((_sorted_points(torch, g["pts_sub_sample_ms"])
+                   - _sorted_points(torch, c["pts_sub_sample_ms"])).abs().max())
+        check(e <= 1e-5, f"ball r={r}: the sub-sample differs between card "
+                         f"and CPU ({e:.3e})")
+        check(bool((g["patch_radius_ms"] == r).all()),
+              f"ball r={r}: the radius is not the fixed radius")
+        # selection: the same priorities go to the same candidate slots, so
+        # rows agree unless two candidates' centroid distances round apart
+        # on the two devices and swap slots (and priorities); every point
+        # lies in its ball either way
+        slots = {}
+        for tag, b in (("card", g), ("cpu", c)):
+            norm = torch.linalg.vector_norm(b["patch_pts_ps"], dim=-1)
+            check(float(norm.max()) <= 1.0 + 1e-5,
+                  f"ball r={r}: a {tag} patch point lies outside its ball")
+            slots[tag] = norm > 0
+        shared = []
+        for i in range(len(q)):
+            a = set(g["patch_pts_ids"][i][slots["card"][i]].tolist())
+            b = set(c["patch_pts_ids"][i][slots["cpu"][i]].tolist())
+            shared.append(len(a & b) / max(len(a), len(b)) if a or b
+                          else 1.0)
+        same = sum(v == 1.0 for v in shared)
+        overlap = sum(shared) / len(shared)
+        pad = float((~slots["card"]).float().mean())
+        # the model on the card's batch, card against CPU
+        with torch.inference_mode():
+            pg = model({k: v.to(device) for k, v in g.items()}).cpu()
+            pc = model_cpu(g)
+        err = (pg - pc).abs()
+        bad = int((err > 1e-4 + 1e-3 * pc.abs()).sum())
+        confident = pc[:, 1].abs() > 1e-3
+        flips = int(((torch.sign(pg[:, 1]) != torch.sign(pc[:, 1]))
+                     & confident).sum())
+        print(f"[ball r={r}] tile depth {depth}; the query slice (256 grid "
+              f"queries), card vs CPU with the same draws: the sub-sample "
+              f"equal as point sets (atol 1e-5); the same patch in {same} of "
+              f"{len(q)} rows, {overlap:.4%} of the patch points shared "
+              f"(held at 99%; the least in a row {min(shared):.2%}, held at "
+              f"90%), every point in its ball; "
+              f"{pad:.1%} of the card's patch slots padded; the model on the "
+              f"card's batch: raw output max_abs_err {float(err.max()):.3e}, "
+              f"{bad} outside rtol 1e-3 / atol 1e-4, {flips} sign flips")
+        check(overlap >= 0.99 and min(shared) >= 0.9,
+              f"ball r={r}: the card's patches differ from the CPU's")
+        check(bad == 0 and flips == 0, f"ball r={r}: the query slice differs "
+                                       f"between card and CPU")
+
+        fn = make_sdf_query_fn(model, OUTPUTS, cfg, fixed_radius=True)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        certs = []
+        real = patches._tile_select
+
+        def recording(*args, **kw):
+            got = real(*args, **kw)
+            certs.append(got[2])
+            return got
+
+        patches._tile_select = recording
+        try:
+            with _Recorder(pn) as rec:  # the call sites of one batch
+                fn(pts_t, batch_queries(0), n, gen)
+            torch.cuda.synchronize()
+            certs.clear()
+            _zero_launches(chain_head, chain_pool)
+            for i in range(1, 1 + OPT_WARMUP):
+                fn(pts_t, batch_queries(i), n, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(1 + OPT_WARMUP, 1 + OPT_WARMUP + OPT_TIMED):
+                dist = fn(pts_t, batch_queries(i), n, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            patches._tile_select = real
+        n_batches = OPT_WARMUP + OPT_TIMED
+        cert = torch.cat(certs).float()
+        launched = {f.__name__: f.launches for f in (chain_head, chain_pool)}
+        qps = BATCH * OPT_TIMED / dt
+        res["qps"][r] = qps
+        for k, v in launched.items():
+            res["launches"][k] += v
+        print(f"[ball r={r}] {qps:.1f} queries/s at batch {BATCH} "
+              f"({OPT_TIMED} timed batches, {dt / OPT_TIMED * 1e3:.2f} "
+              f"ms/batch host clock); tiles certified {float(cert.mean()):.1%}"
+              f" ({int(cert.sum())} of {cert.numel()}), batches falling back "
+              f"{sum(not bool(t.all()) for t in certs)} of {n_batches}; "
+              f"launches per batch: chain_head "
+              f"{launched['chain_head'] / n_batches}, chain_pool "
+              f"{launched['chain_pool'] / n_batches}")
+        check(dist.shape == (BATCH,) and bool(torch.isfinite(dist).all()),
+              f"ball r={r}: distances not finite or of the wrong shape")
+        for k, v in launched.items():
+            check(v == 5 * n_batches, f"ball r={r}: {k} launched {v} times "
+                                      f"over {n_batches} batches")
+        e = _driver_sites_check(torch, rec, f"ball r={r}")
+        for k in ("chain_head", "chain_pool"):
+            res["err"][k] = max(res["err"][k], e[k])
+
+    # a ball-mode train step at TRAIN_BATCH: its tails see the pad slots'
+    # duplicate rows
+    cfg = patches.PatchConfig(points_per_patch=300, patch_radius=0.05,
+                              sub_sample_size=1000)
+    steps = make_train_step(copy.deepcopy(model), OUTPUTS, lr=0.01,
+                            momentum=0.9, patch_cfg=cfg, fixed_radius=True)
+    gt = torch.from_numpy((np.random.RandomState(SEED).randn(TRAIN_BATCH)
+                           * 0.05).astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    with _Recorder(pn) as rec:
+        losses, _ = steps.train_step_fused(
+            pts_t, batch_queries(3, TRAIN_BATCH), n, gt, gen)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(losses).all()), "non-finite ball train loss")
+    e = _driver_sites_check(torch, rec, "ball train")
+    res["err"]["pooled_tail"] = max(res["err"]["pooled_tail"],
+                                    e["pooled_tail"])
+    res["dup_share"] = _first_index_check(torch, rec.tail, "ball train")
+    del steps
+    return res
+
+
+def _train_rate(torch, np, device, model, cfg, n, pts_pad, queries, tag,
+                fixed_radius=False):
+    """Train patches/s at TRAIN_BATCH (OPT_TIMED fused steps after
+    OPT_WARMUP) and the kernels' launches per step (both modes)."""
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    steps = make_train_step(copy.deepcopy(model).to(device), OUTPUTS,
+                            lr=0.01, momentum=0.9, patch_cfg=cfg,
+                            fixed_radius=fixed_radius)
+    pts_t = torch.from_numpy(pts_pad).to(device)
+    q_all = torch.from_numpy(queries).to(device)
+    gt = torch.from_numpy((np.random.RandomState(SEED).randn(TRAIN_BATCH)
+                           * 0.05).astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def step(i):
+        s = (i * TRAIN_BATCH) % (len(queries) - TRAIN_BATCH)
+        return steps.train_step_fused(pts_t, q_all[s:s + TRAIN_BATCH], n, gt,
+                                      gen)
+
+    kernels = (chain_head, chain_pool, pooled_tail_reductions)
+    torch.cuda.synchronize()
+    _zero_launches(*kernels)
+    for i in range(OPT_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OPT_WARMUP, OPT_WARMUP + OPT_TIMED):
+        losses, _ = step(i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_steps = OPT_WARMUP + OPT_TIMED
+    launched = {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+    pps = TRAIN_BATCH * OPT_TIMED / dt
+    print(f"[{tag}] {pps:.1f} train patches/s at batch {TRAIN_BATCH} "
+          f"({OPT_TIMED} timed steps, {dt / OPT_TIMED * 1e3:.2f} ms/step host "
+          f"clock); last losses {losses.tolist()}; launches (fp32, bf16) over "
+          f"{n_steps} steps: {launched}")
+    check(bool(torch.isfinite(losses).all()), f"{tag}: non-finite loss")
+    return pps, launched, n_steps
+
+
+def phase_uniform(torch, np, device, pts_pad, n, queries):
+    """Phase 10, the uniform with-replacement sub-sample in
+    train_p2s_uniform.sh's and train_p2s_max.sh's model configs: one step
+    at batch 64 on the card against the CPU in float64 (phase 5's check),
+    then patches/s at TRAIN_BATCH with a pooled_tail launch per trunk and
+    encoder per step (5; 4 without the point STN)."""
+    from points2surf_tpu_torch.ops.patches import PatchConfig
+
+    cfg = PatchConfig(points_per_patch=300, patch_radius=0.0,
+                      sub_sample_size=1000, uniform_subsample=True)
+    res = {"pps": {}, "launches": 0}
+    for name, variant in UNIFORM_CONFIGS.items():
+        model = _bench_model(torch, device, **variant)
+        phase_train_slice(torch, np, device, model, pts_pad, n, queries,
+                          cfg=cfg, tag=f"uniform {name} slice")
+        pps, launched, n_steps = _train_rate(
+            torch, np, device, model, cfg, n, pts_pad, queries,
+            f"uniform {name}")
+        res["pps"][name] = pps
+        fp32, bf16 = launched["pooled_tail_reductions"]
+        tails = 5 if variant.get("use_point_stn", True) else 4
+        check(fp32 == tails * n_steps and bf16 == 0,
+              f"uniform {name}: pooled_tail launched {launched}, expected "
+              f"{tails} per step")
+        res["launches"] += fp32
+        del model
+    return res
+
+
+def phase_bf16_act(torch, np, device, model, pts_pad, n, queries):
+    """Phase 10, bf16 activations (``--train_dtype`` / ``--eval_dtype
+    bfloat16``; not the operand modes of phase 9): the query at batch BATCH
+    (queries/s) with its first BF16_ACT_ROWS rows on the CPU, the train step
+    at TRAIN_BATCH (patches/s) and one step at SLICE_TRAIN_BATCH on the
+    card's batch against the CPU; no kernel launches in any of them."""
+    from points2surf_tpu_torch.infer.query import make_sdf_query_fn
+    from points2surf_tpu_torch.models.pointnet import _STNTrunk, set_act_dtype
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.ops.patches import PatchConfig, extract_patches
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    kernels = (chain_head, chain_pool, pooled_tail_reductions)
+    bf16 = torch.bfloat16
+    cpu = torch.device("cpu")
+    m16 = copy.deepcopy(model)
+    set_act_dtype(m16, bf16)
+    cfg = PatchConfig(points_per_patch=300, patch_radius=0.0,
+                      sub_sample_size=1000, subsample_candidates=4)
+    pts_t = torch.from_numpy(pts_pad).to(device)
+    q_all = torch.from_numpy(queries).to(device)
+    fn = make_sdf_query_fn(m16, OUTPUTS, cfg, fixed_radius=False)
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    torch.cuda.synchronize()
+    _zero_launches(*kernels)
+    for i in range(OPT_WARMUP):
+        fn(pts_t, q_all[i * BATCH:(i + 1) * BATCH], n, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OPT_WARMUP, OPT_WARMUP + OPT_TIMED):
+        dist = fn(pts_t, q_all[i * BATCH:(i + 1) * BATCH], n, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    qps = BATCH * OPT_TIMED / dt
+    with torch.inference_mode():
+        batch = extract_patches(pts_t, q_all[:BATCH], n, gen, cfg=cfg)
+        pred = m16(batch)
+    torch.cuda.synchronize()
+    launched = {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+    check(dist.dtype == torch.float32 and bool(torch.isfinite(dist).all()),
+          "bf16 activations: query distances not finite float32")
+    m16_cpu = copy.deepcopy(m16).to(cpu)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pc = m16_cpu({k: v[:BF16_ACT_ROWS].to(cpu) for k, v in batch.items()})
+    t_cpu = time.perf_counter() - t0
+    pg = pred[:BF16_ACT_ROWS].float().cpu()
+    pc = pc.float()
+    scale = float(pc.abs().max())
+    err = float((pg - pc).abs().max())
+    sure = pc[:, 1].abs() > 32 * U_BF16 * scale
+    flips = int(((torch.sign(pg[:, 1]) != torch.sign(pc[:, 1])) & sure).sum())
+    print(f"[bf16 act query] {qps:.1f} queries/s at batch {BATCH} "
+          f"({OPT_TIMED} timed batches, {dt / OPT_TIMED * 1e3:.2f} ms/batch "
+          f"host clock); launches (fp32, bf16) {launched}; the first "
+          f"{BF16_ACT_ROWS} rows of a batch on the CPU ({t_cpu:.1f} s): raw "
+          f"output bf16, max|card - CPU| {err:.3e} = {err / scale:.3e} of "
+          f"max|ref| (held at 32u = {32 * U_BF16:.4f}), {flips} sign flips "
+          f"where |logit| > 32u max|ref|")
+    check(pred.dtype == bf16, "bf16 activations: the output is not bf16")
+    check(err <= 32 * U_BF16 * scale and flips == 0,
+          "bf16 activations: the query differs between card and CPU")
+    check(all(v == (0, 0) for v in launched.values()),
+          f"bf16 activations launched a kernel in the query: {launched}")
+    res = {"qps": qps}
+
+    m0 = copy.deepcopy(model)
+    with torch.no_grad():
+        for mod in m0.modules():
+            if isinstance(mod, _STNTrunk):
+                mod.fc3.weight.zero_()
+                mod.fc3.bias.zero_()
+    set_act_dtype(m0, bf16)
+    tcfg = _train_cfg()
+    pps, launched, _ = _train_rate(torch, np, device, m0, tcfg, n, pts_pad,
+                                   queries, "bf16 act train")
+    check(all(v == (0, 0) for v in launched.values()),
+          f"bf16 activations launched a kernel in training: {launched}")
+    res["pps"] = pps
+    b = SLICE_TRAIN_BATCH
+    gt = torch.from_numpy((np.random.RandomState(SEED + 41).randn(b)
+                           * 0.05).astype(np.float32)).to(device)
+    out, batch = [], None
+    for dev in (device, cpu):
+        m = copy.deepcopy(m0).to(dev)
+        st = make_train_step(m, OUTPUTS, lr=0.01, momentum=0.9,
+                             patch_cfg=tcfg)
+        if batch is None:
+            batch = st.extract_train_batch(pts_t, q_all[:b], n, gt,
+                                           torch.Generator(
+                                               device=device).manual_seed(1))
+        t0 = time.perf_counter()
+        losses, _ = st.train_step({k: v.to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        named = dict(m.named_parameters())
+        out.append((losses.cpu(), {k: p.grad.cpu() for k, p in named.items()},
+                    {k: p.detach().cpu() for k, p in named.items()},
+                    time.perf_counter() - t0))
+    (lg, gg, pg_, tg), (lc, gc, pc_, tc) = out
+    names = [k for k in gc if not (k.endswith(".bias") and k.split(".")[
+        -2].startswith(("conv", "fc")) and not k.startswith("fc4"))]
+    a = torch.cat([gg[k].flatten() for k in names]).double()
+    r = torch.cat([gc[k].flatten() for k in names]).double()
+    cos = float(a @ r / a.norm() / r.norm())
+    e_l = float(((lg - lc).abs() / lc.abs()).max())
+    g_max = float(r.abs().max())
+    e_p = max(float((pg_[k] - pc_[k]).abs().max()) for k in pc_)
+    print(f"[bf16 act train] one step at batch {b} on the card's batch, card "
+          f"({tg:.2f} s) vs CPU ({tc:.2f} s): losses {lg.tolist()} vs "
+          f"{lc.tolist()}, max rel err {e_l:.3e} (rtol 32u = "
+          f"{32 * U_BF16:.4f}); gradient cosine {cos:.4f} (> 0.85); updated "
+          f"parameters max|err| {e_p:.3e} (within 2 lr max|g| = "
+          f"{0.02 * g_max:.3e})")
+    check(bool(torch.isfinite(lg).all()) and e_l <= 32 * U_BF16
+          and cos > 0.85 and e_p <= 0.02 * g_max + 1e-7,
+          "bf16 activations: the train step differs between card and CPU")
+    return res
+
+
+def phase_cli(torch, np, device, tmp):
+    """Phase 10, the CLIs: ``full_train`` with the reference's default flags
+    (ball mode, r = 0.05, 50 / 500 points, random order) but the
+    experiments' outputs (CLI_OUTPUTS), one epoch and batch CLI_BATCH, on a
+    copy of abc_minimal, then
+    ``full_eval`` (the eval pass, the reconstruction at grid CLI_GRID, the
+    meshes and both CSVs). Returns the kernels' launches."""
+    import shutil
+
+    from points2surf_tpu_torch.cli import full_eval, full_train
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.utils import mesh_io
+
+    kernels = (chain_head, chain_pool, pooled_tail_reductions)
+    root = os.path.join(tmp, "cli")
+    data = os.path.join(root, "datasets", DRIVER_DATASET)
+    shutil.copytree(os.path.join(ROOT, "datasets", DRIVER_DATASET), data,
+                    ignore=shutil.ignore_patterns("cache"))
+    models = os.path.join(root, "models")
+    launched = {}
+    torch.cuda.synchronize()
+    _zero_launches(*kernels)
+    t0 = time.perf_counter()
+    full_train.main(["--name", "p2s_default", "--indir", data,
+                     "--outdir", models, "--logdir", os.path.join(root, "logs"),
+                     "--nepoch", "1", "--batchSize", str(CLI_BATCH),
+                     "--outputs", *CLI_OUTPUTS])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launched["train"] = {f.__name__: f.launches for f in kernels}
+    _zero_launches(*kernels)
+    t0 = time.perf_counter()
+    full_eval.main(["--indir", os.path.join(root, "datasets"),
+                    "--dataset", f"{DRIVER_DATASET}/testset.txt",
+                    "--outdir", os.path.join(root, "results"),
+                    "--modeldir", models, "--models", "p2s_default",
+                    "--query_grid_resolution", str(CLI_GRID),
+                    "--epsilon", "3", "--sigma", str(MESH_SIGMA),
+                    "--certainty_threshold", str(MESH_CERTAINTY),
+                    "--batchSize", "1000"])
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launched["eval"] = {f.__name__: f.launches for f in kernels}
+    res = os.path.join(root, "results", "p2s_default_model", DRIVER_DATASET)
+    with open(os.path.join(data, "testset.txt")) as f:
+        name = f.read().split()[0]
+    verts, faces = mesh_io.load_mesh(os.path.join(res, "rec", "mesh",
+                                                  name + ".ply"))
+    hd = _csv_row(np, os.path.join(res, "rec", "hausdorff_dist_pred_rec.csv"),
+                  name)
+    mse = _csv_row(np, os.path.join(res, "eval", "rme_comp_res.csv"), name)
+    print(f"[cli] full_train (reference defaults: patch_radius 0.05, 50 / "
+          f"500 points; batch {CLI_BATCH}, 1 epoch, outputs {CLI_OUTPUTS}) "
+          f"{t_train:.2f} s, launches "
+          f"{launched['train']}; full_eval (eval pass, grid-{CLI_GRID} "
+          f"reconstruction, meshing, CSVs) {t_eval:.2f} s, launches "
+          f"{launched['eval']}; mesh {len(verts)} vertices, {len(faces)} "
+          f"faces; eval CSV row {mse}; Hausdorff/Chamfer CSV row {hd}")
+    check(launched["train"]["pooled_tail_reductions"] > 0
+          and launched["eval"]["chain_pool"] > 0,
+          "the CLIs did not launch the kernels")
+    check(len(faces) > 0 and bool(np.isfinite(np.asarray(verts)).all()),
+          "full_eval wrote no finite mesh")
+    return launched
 
 
 def main() -> int:
@@ -1938,6 +2495,15 @@ def main() -> int:
         bfl = phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n,
                                queries, drv, tmp)
         print(f"[bf16] phase 9 took {time.perf_counter() - t9:.1f} s")
+        t10 = time.perf_counter()
+        opt_err = phase_option_kernels(torch, device)
+        ball = phase_ball(torch, np, device, model, pts_pad, n, queries)
+        uni = phase_uniform(torch, np, device, pts_pad, n, queries)
+        b16 = phase_bf16_act(torch, np, device, model, pts_pad, n, queries)
+        cli = phase_cli(torch, np, device, tmp)
+        print(f"[options] phase 10 took {time.perf_counter() - t10:.1f} s: "
+              f"ball queries/s {ball['qps']}, uniform train patches/s "
+              f"{uni['pps']}, bf16 activations {b16}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the query, train and driver paths: "
           f"{mlp_launches} "
@@ -1952,17 +2518,29 @@ def main() -> int:
     # mode (phase 9), bound at the bf16 peak. No single PyTorch call
     # computes any of these functions, so library_ms is null. launches sums
     # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
-    # the bf16 query, train step and reconstruction of phase 9; each counted
-    # from 0 just before it), launches_by_path splits them.
+    # the bf16 query, train step and reconstruction of phase 9; phase 10's
+    # ball-mode queries, uniform-mode train steps and CLI run; each counted
+    # from 0 just before it), launches_by_path splits them. max_abs_err
+    # takes phase 10's call sites (n = 1200 and 75, ball mode) too.
     dl = drv["launches"]
+
+    def cli_count(name):
+        return cli["train"][name] + cli["eval"][name]
+
     by_path = {
         "chain_head": {"query": launches["chain_head"],
                        "mesh": mesh_launches["chain_head"],
-                       "driver": dl["chain_head"]},
+                       "driver": dl["chain_head"],
+                       "ball_query": ball["launches"]["chain_head"],
+                       "cli": cli_count("chain_head")},
         "chain_pool": {"query": launches["chain_pool"],
                        "mesh": mesh_launches["chain_pool"],
-                       "driver": dl["chain_pool"]},
-        "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"]},
+                       "driver": dl["chain_pool"],
+                       "ball_query": ball["launches"]["chain_pool"],
+                       "cli": cli_count("chain_pool")},
+        "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"],
+                        "uniform_train": uni["launches"],
+                        "cli": cli_count("pooled_tail_reductions")},
         "mlp_maxpool": {"all": mlp_launches},
         "chain_head_bf16": {
             "query": bfl["query"]["chain_head"][1],
@@ -1975,13 +2553,16 @@ def main() -> int:
     }
     entries = (
         ("chain_head", "chain_head.cu", "chain_kernel.py:187",
-         max(kern["err"]["chain_head"], drv["err"]["chain_head"]), q["head"],
+         max(kern["err"]["chain_head"], drv["err"]["chain_head"],
+             opt_err["chain_head"], ball["err"]["chain_head"]), q["head"],
          q["head_plain"], *q["head_cost"]),
         ("chain_pool", "chain_pool.cu", "chain_kernel.py:187",
-         max(kern["err"]["chain_pool"], drv["err"]["chain_pool"]), q["tail"],
+         max(kern["err"]["chain_pool"], drv["err"]["chain_pool"],
+             opt_err["chain_pool"], ball["err"]["chain_pool"]), q["tail"],
          q["tail_plain"], *q["tail_cost"]),
         ("pooled_tail", "pooled_tail.cu", "train_tail.py:138",
-         max(tail["max_abs_err"], drv["err"]["pooled_tail"]), tail["ms"],
+         max(tail["max_abs_err"], drv["err"]["pooled_tail"],
+             opt_err["pooled_tail"], ball["err"]["pooled_tail"]), tail["ms"],
          tail["plain_ms"], *tail["cost"]),
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,

@@ -50,10 +50,10 @@ def parse_arguments(args=None):
                              'decimation (selection is exact either way)')
     parser.add_argument('--eval_dtype', type=str, default='auto',
                         choices=['auto', 'float32', 'bfloat16'],
-                        help='inference activation dtype; auto = the '
-                             'checkpoint\'s training dtype. float32 is '
-                             'the only one ported: bfloat16 is accepted '
-                             'and the model load raises')
+                        help='inference activation dtype; auto = '
+                             'P2S_EVAL_DTYPE if it names one, else the '
+                             'checkpoint\'s training dtype. Parameters '
+                             'stay float32.')
 
     opt = parser.parse_args(args=args)
     # surface non-default values of the dead compatibility flags instead of

@@ -33,13 +33,18 @@ def parse_arguments(args=None):
                              'each log is one device-to-host copy.')
     parser.add_argument('--train_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'],
-                        help='activation dtype for training. float32 is '
-                             'the only one ported: bfloat16 is accepted '
-                             'and the model build raises.')
+                        help='activation dtype for training. float32 '
+                             '(default) or bfloat16 (flax-style: bf16 '
+                             'matmuls and activations, BatchNorm '
+                             'statistics in float32). Parameters, running '
+                             'statistics, losses and checkpoints are '
+                             'float32 either way. bfloat16 launches none of '
+                             'the fp32 kernels, as in the JAX package.')
     parser.add_argument('--f32_finetune_epochs', type=int, default=-1,
                         help='with --train_dtype bfloat16, run the final N '
-                             'epochs in float32 (precision annealing; '
-                             'not ported, no effect in float32).')
+                             'epochs in float32 (precision annealing). -1 '
+                             '(default) = max(5, nepoch // 5); 0 disables '
+                             'it. No effect when training in float32.')
     parser.add_argument('--refine', type=str, default='',
                         help='refine model at this path')
     parser.add_argument('--gpu_idx', type=int, default=[0], nargs='+',

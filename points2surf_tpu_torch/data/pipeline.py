@@ -12,9 +12,11 @@ distances are small host arrays shipped alongside.
 Every batch's random numbers come from one ``torch.Generator`` on the
 store's device, seeded with ``seed``, through :meth:`PatchPipeline.draws`
 (one call per extracted run, in the JAX package's order of ``next_key``
-calls). The JAX package pads each run to a power-of-two bucket for XLA's
-compile cache; eager PyTorch has no such cache, so runs are extracted at
-their own length here.
+calls): the sub-sample's (the uniform mode's ids included), the rotations,
+and in ball mode the selection's priorities, which the generator makes
+while that run's selection runs. The JAX package pads each run to a
+power-of-two bucket for XLA's compile cache; eager PyTorch has no such
+cache, so runs are extracted at their own length here.
 """
 
 from __future__ import annotations
@@ -56,13 +58,15 @@ class PatchPipeline:
         points_to_surf_train.py:99-100, data_loader.py:332-333)."""
         self._gen.manual_seed(self.seed)
 
-    def draws(self, b: int, n: int, small_cloud: bool = False
-              ) -> SubsampleDraws | TrainDraws:
+    def draws(self, b: int, n: int, small_cloud: bool = False,
+              n_valid: int | None = None) -> SubsampleDraws | TrainDraws:
         """The random numbers of the next extracted run of ``b`` queries
-        against a cloud padded to ``n`` rows: its sub-sample's, and with
-        ``augment`` one rotation per row (:class:`TrainDraws`)."""
+        against a cloud padded to ``n`` rows with ``n_valid`` valid ones:
+        its sub-sample's, with ``augment`` one rotation per row
+        (:class:`TrainDraws`), and in ball mode the selection's
+        priorities."""
         return draw_batch(self._gen, b, n, self.cfg, small_cloud,
-                          train=self.augment)
+                          train=self.augment, n_valid=n_valid)
 
     def small_cloud(self, n_valid: int) -> bool:
         return n_valid < max(self.cfg.sub_sample_size, 1)
@@ -73,7 +77,8 @@ class PatchPipeline:
         queries = torch.from_numpy(shape.query_pts[local_inds]).to(
             self.store.device)
         small = self.small_cloud(n_valid)
-        draws = self.draws(len(local_inds), pts_dev.shape[0], small)
+        draws = self.draws(len(local_inds), pts_dev.shape[0], small,
+                           n_valid=n_valid)
         return extract_patches(
             pts_dev, queries, n_valid, draws, cfg=self.cfg,
             train=self.augment, small_cloud=small,

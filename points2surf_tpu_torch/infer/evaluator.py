@@ -123,15 +123,16 @@ def load_model_for_eval(eval_opt, model_name, device="cuda"):
             setattr(train_opt, attr, default)
 
     pred_dim, _, _ = output_spec(train_opt.outputs)
-    # the inference dtype: --eval_dtype, or with 'auto' the checkpoint's
-    # training dtype; float32 is the only one ported
+    # the inference activation dtype: --eval_dtype, with 'auto'
+    # P2S_EVAL_DTYPE, with 'auto' again the checkpoint's training dtype;
+    # parameters stay float32
     dtype = getattr(eval_opt, "eval_dtype", "auto")
     if dtype == "auto":
+        dtype = os.environ.get("P2S_EVAL_DTYPE", "auto")
+    if dtype not in ("float32", "bfloat16"):
         dtype = getattr(train_opt, "train_dtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(f"{dtype} inference is not ported yet")
     model = build_model(
-        argparse.Namespace(**{**vars(train_opt), "train_dtype": "float32"}),
+        argparse.Namespace(**{**vars(train_opt), "train_dtype": dtype}),
         pred_dim)
 
     if model_file.endswith(".pth"):
@@ -230,7 +231,8 @@ def points_to_surf_eval(eval_opt, device="cuda"):
                         q = torch.cat(
                             [q, q[:1].expand(batch_size - len(q), 3)])
                     draws = draw_batch(gen, batch_size, pts_dev.shape[0],
-                                       patch_cfg, small, train=augment)
+                                       patch_cfg, small, train=augment,
+                                       n_valid=n_valid)
                     pending.append(query_fn(pts_dev, q, n_valid, draws,
                                             small_cloud=small))
                 dists = drain_batched_results(pending, len(queries))

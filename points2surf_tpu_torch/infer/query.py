@@ -25,7 +25,8 @@ def postprocess_sdf(pred: torch.Tensor, radius: torch.Tensor, outputs,
     """Raw predictions (B, n_pred) -> (B,) model-space signed distances
     (tanh^2 magnitude times sign, scaled by the patch radius). Outputs other
     than the three predictions (``patch_pts_ids``, ``p_index``: debug
-    plumbing) hold no column and are skipped."""
+    plumbing) hold no column and are skipped. The result is float32 (bf16
+    activations give bf16 predictions)."""
     dist = mag = sign = None
     dim = 0
     for o in outputs:
@@ -40,7 +41,8 @@ def postprocess_sdf(pred: torch.Tensor, radius: torch.Tensor, outputs,
         elif o == "imp_surf_sign":
             sign = L.post_process_sign(pred[:, dim])
             dim += 1
-    return dist if dist is not None else mag * sign
+    out = dist if dist is not None else mag * sign
+    return out.to(torch.float32)
 
 
 def make_sdf_query_fn(model: torch.nn.Module, outputs,

@@ -9,6 +9,10 @@ Variants (mutually exclusive, reference points_to_surf_model.py:250-267):
   * shared_transformation: one QSTN consumes both point sets concatenated
     and rotates both;
   * single_transformer: one encoder consumes both point sets concatenated.
+
+``dtype=torch.bfloat16`` runs the activations in bf16 with fp32 parameters
+(the JAX package's ``dtype``; ``models/pointnet.py``); the output is then
+bf16, and the train step casts it to fp32 for the losses.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from points2surf_tpu_torch.models.pointnet import BN, PLinear, PointNetFeat, QSTN
+from points2surf_tpu_torch.models.pointnet import (
+    BN, PLinear, PointNetFeat, QSTN, set_act_dtype)
 from points2surf_tpu_torch.ops import geometry
 
 
@@ -24,8 +29,10 @@ class PointsToSurfModel(nn.Module):
     def __init__(self, net_size_max: int = 1024, output_dim: int = 2,
                  use_point_stn: bool = True, use_feat_stn: bool = True,
                  sym_op: str = "max", single_transformer: bool = False,
-                 shared_transformation: bool = False):
+                 shared_transformation: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.act_dtype = dtype
         self.single_transformer = single_transformer
         self.shared_transformation = shared_transformation
         self.use_point_stn = use_point_stn
@@ -56,6 +63,7 @@ class PointsToSurfModel(nn.Module):
         self.fc3 = PLinear(net_size_max // 4, net_size_max // 8, conv=False)
         self.bn3 = BN(net_size_max // 8)
         self.fc4 = PLinear(net_size_max // 8, output_dim, conv=False)
+        set_act_dtype(self, dtype)
 
     def forward(self, batch: dict) -> torch.Tensor:
         """batch: patch_pts_ps (B, P, 3), pts_sub_sample_ms (B, S, 3),

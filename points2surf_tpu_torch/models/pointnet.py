@@ -31,8 +31,26 @@ tail's backward included: only the forward's reductions (and the ``mean``
 saved for the backward) come from bf16 products.
 
 BatchNorm in train mode follows flax: the biased batch variance normalizes
-and updates the running variance, ``r = 0.9 r + 0.1 batch``. The
-multi-scale branch raises.
+and updates the running variance, ``r = 0.9 r + 0.1 batch``.
+
+**Activation dtype** (``dtype=torch.bfloat16``, the JAX package's
+``--train_dtype`` / ``--eval_dtype bfloat16``; independent of the operand
+modes above, which keep fp32 activations). As flax computes with
+``dtype=bfloat16`` and fp32 parameters: every linear layer rounds its input,
+weights and bias to bf16 and returns bf16; BatchNorm takes its statistics
+and normalizes in fp32 and returns bf16 (running statistics stay fp32). The
+JAX package's gates send bf16 to its literal stack, and so does this port:
+no covariance form, no ``chain_pool`` (the eval conv3 tail is the bf16
+matmul, the fp32 affine and the pool, in row chunks), and the train tail is
+``_LinearPoolReductions``' plain bf16 branch (``pooled_tail`` is fp32 only
+there). No kernel is launched in bf16.
+
+**Multi-scale** (``num_scales > 1``, the reference's dormant branch): the
+point axis holds ``num_scales`` equal segments, pooled one by one
+(``_scale_pool``); the trunks add ``fc0``/``bn0`` before their head and the
+encoder a ``conv4``/``bn4`` expansion to ``output_size * num_scales``
+channels, so its codeword has ``output_size * num_scales**2``. It runs the
+literal stack, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +66,8 @@ from points2surf_tpu_torch.ops.kernels.pooled_tail import (
     pooled_tail_reductions)
 
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running statistic
+# elements of the (rows, n, C) fp32 temporaries of one bf16 eval-tail chunk
+_EVAL_TAIL_CHUNK = 1 << 27
 
 
 class PLinear(nn.Module):
@@ -55,7 +75,11 @@ class PLinear(nn.Module):
 
     ``conv=True`` holds a torch ``Conv1d(k=1)`` weight (out, in, 1),
     otherwise a ``Linear`` weight (out, in); both with torch's default
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) init."""
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) init. With ``act_dtype`` (flax's
+    ``Dense(dtype=...)``; :func:`set_act_dtype`) input, weight and bias are
+    cast to it."""
+
+    act_dtype: torch.dtype | None = None
 
     def __init__(self, in_features: int, out_features: int, conv: bool):
         super().__init__()
@@ -71,7 +95,10 @@ class PLinear(nn.Module):
         return self.weight.reshape(self.weight.shape[0], -1).t()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel()) + self.bias
+        d = self.act_dtype
+        if d is None:
+            return torch.matmul(x, self.kernel()) + self.bias
+        return torch.matmul(x.to(d), self.kernel().to(d)) + self.bias.to(d)
 
 
 class BN(nn.BatchNorm1d):
@@ -80,7 +107,11 @@ class BN(nn.BatchNorm1d):
     flax's ``nn.BatchNorm``: statistics over every axis but the last, the
     biased variance E[x^2] - E[x]^2 (clipped at 0), running statistics
     ``0.9 r + 0.1 batch`` (stock ``BatchNorm1d`` would update the running
-    variance with the unbiased one)."""
+    variance with the unbiased one). With ``act_dtype`` (flax's
+    ``BatchNorm(dtype=...)``) the statistics and the normalization stay
+    fp32 and the output is cast to it."""
+
+    act_dtype: torch.dtype | None = None
 
     def eval_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(a, c) with ``bn(y) == y * a + c`` under the running statistics."""
@@ -96,15 +127,32 @@ class BN(nn.BatchNorm1d):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        d = self.act_dtype
+        if d is None and not self.training:
             a, c = self.eval_affine()
             return x * a + c
-        dims = tuple(range(x.dim() - 1))
-        mean = torch.mean(x, dim=dims)
-        var = torch.clamp(torch.mean(x * x, dim=dims) - mean * mean, min=0.0)
-        self.update_running_stats(mean, var)
+        if d is not None:
+            x = x.to(self.weight.dtype)
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=dims)
+            var = torch.clamp(torch.mean(x * x, dim=dims) - mean * mean,
+                              min=0.0)
+            self.update_running_stats(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * inv + self.bias
+        y = (x - mean) * inv + self.bias
+        return y if d is None else y.to(d)
+
+
+def set_act_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
+    """Switch every layer of ``model`` to activation dtype ``dtype`` (None:
+    float32). Parameters keep their dtype, so an optimizer's state stays
+    valid (the trainer's precision annealing)."""
+    for mod in model.modules():
+        if hasattr(mod, "act_dtype"):
+            mod.act_dtype = dtype
 
 
 def _chain_layer(conv: PLinear, bn: BN):
@@ -115,12 +163,13 @@ def _chain_layer(conv: PLinear, bn: BN):
 
 
 def _conv_bn_relu(x, conv: PLinear, bn: BN):
-    """Pointwise linear -> BatchNorm -> ReLU on (B, n, Cin). In train mode
-    the covariance form of the JAX package (``_conv_bn_relu``): the batch
-    statistics of ``y = x @ W + b`` are ``mean(x) @ W + b`` and
+    """Pointwise linear -> BatchNorm -> ReLU on (B, n, Cin). In fp32 train
+    mode the covariance form of the JAX package (``_conv_bn_relu``): the
+    batch statistics of ``y = x @ W + b`` are ``mean(x) @ W + b`` and
     ``diag(W^T Cov(x) W)``, and the layer is one matmul with the effective
-    weights ``W * g / sigma``; autograd differentiates through it."""
-    if not bn.training:
+    weights ``W * g / sigma``; autograd differentiates through it. Eval and
+    bf16 activations take the literal layers, as the JAX package does."""
+    if not bn.training or bn.act_dtype is not None:
         return torch.relu(bn(conv(x)))
     k, b = conv.kernel(), conv.bias
     n_tot = x.shape[0] * x.shape[1]
@@ -140,20 +189,34 @@ class _LinearPoolReductions(torch.autograd.Function):
     package's ``_linear_pool_reductions``): (max_n c, min_n c) or sum_n c,
     then the batch mean and biased variance of c over (B, n).
 
-    The forward is the ``pooled_tail`` kernel. The backward is
-    ``_lpr_bwd``: with N = B n, alpha = (g_mean - 2 mean g_var) / N and
-    kappa = 2 g_var / N, dL/dc = (arg-row one-hots of g_max, g_min, or g_sum
-    broadcast) + alpha + kappa c, pushed through the linear map
-    analytically. The one-hot terms are gathers of x at the arg rows (for
-    dW) and a scatter-add of g W^T into them (for dx): (B, C, Cin) tensors,
-    never (B, n, C)."""
+    The forward is the ``pooled_tail`` kernel; with ``dtype`` (bf16
+    activations, where the JAX package's gate turns its kernel off) it is
+    ``_lpr_compute``: c in that dtype, max and min (first-index args) of it,
+    the sums in fp32. The backward is ``_lpr_bwd``, in fp32 with the
+    gradient of x cast to x's dtype: with N = B n, alpha = (g_mean - 2 mean
+    g_var) / N and kappa = 2 g_var / N, dL/dc = (arg-row one-hots of g_max,
+    g_min, or g_sum broadcast) + alpha + kappa c, pushed through the linear
+    map analytically. The one-hot terms are gathers of x at the arg rows
+    (for dW) and a scatter-add of g W^T into them (for dx): (B, C, Cin)
+    tensors, never (B, n, C)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, need_minmax: bool):
-        cmax, amax, cmin, amin, rsum, rsq = pooled_tail_reductions(x, w, b)
+    def forward(ctx, x, w, b, need_minmax: bool, dtype=None):
         n_tot = x.shape[0] * x.shape[1]
-        mean = torch.sum(rsum, dim=0) / n_tot
-        var = torch.sum(rsq, dim=0) / n_tot - mean * mean
+        if dtype is None:
+            cmax, amax, cmin, amin, rsum, rsq = pooled_tail_reductions(x, w, b)
+            mean = torch.sum(rsum, dim=0) / n_tot
+            var = torch.sum(rsq, dim=0) / n_tot - mean * mean
+        else:
+            c = torch.matmul(x.to(dtype), w.to(dtype)) + b.to(dtype)
+            cmax = cmin = amax = amin = None
+            if need_minmax:
+                cmax, amax = torch.amax(c, dim=1), torch.argmax(c, dim=1)
+                cmin, amin = torch.amin(c, dim=1), torch.argmin(c, dim=1)
+            c32 = c.to(w.dtype)
+            rsum = torch.sum(c32, dim=1)
+            mean = torch.sum(c32, dim=(0, 1)) / n_tot
+            var = torch.sum(c32 * c32, dim=(0, 1)) / n_tot - mean * mean
         ctx.save_for_backward(x, w, b, amax, amin, mean)
         ctx.need_minmax = need_minmax
         if need_minmax:
@@ -163,6 +226,8 @@ class _LinearPoolReductions(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         x, w, b, amax, amin, mean = ctx.saved_tensors
+        x_dtype = x.dtype
+        x = x.to(w.dtype)
         gmean, gvar = grads[-2:]
         bsz, n, cin = x.shape
         n_tot = bsz * n
@@ -179,8 +244,8 @@ class _LinearPoolReductions(torch.autograd.Function):
                   + ((xf.t() @ xf) @ w + xsum[:, None] * b) * kappa)
         grad_b = n_tot * alpha + kappa * (n_tot * mean)
         if ctx.need_minmax:
-            gmax, gmin = grads[:2]
-            for arg, g in ((amax, gmax), (amin, gmin)):
+            for arg, g in ((amax, grads[0]), (amin, grads[1])):
+                g = g.to(w.dtype)
                 idx = arg.long()[:, :, None].expand(bsz, w.shape[1], cin)
                 grad_x.scatter_add_(1, idx, g[:, :, None] * wt)
                 grad_w = grad_w + torch.sum(
@@ -191,7 +256,7 @@ class _LinearPoolReductions(torch.autograd.Function):
             grad_x = grad_x + (gsum @ wt)[:, None, :]
             grad_w = grad_w + torch.sum(x, dim=1).t() @ gsum
             grad_b = grad_b + n * torch.sum(gsum, dim=0)
-        return grad_x, grad_w, grad_b, None
+        return grad_x.to(x_dtype), grad_w, grad_b, None, None
 
 
 def _pooled_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
@@ -200,22 +265,57 @@ def _pooled_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
     it: the max pool takes max_n c where the scale is >= 0 and min_n c
     elsewhere, the sum pool scales sum_n c."""
     need_minmax = sym_op == "max"
+    d = conv.act_dtype
     out = _LinearPoolReductions.apply(
-        x.contiguous(), conv.kernel().contiguous(), conv.bias, need_minmax)
+        x.contiguous(), conv.kernel().contiguous(), conv.bias, need_minmax, d)
     mean, var = out[-2:]
     bn.update_running_stats(mean.detach(), var.detach())
     inv = bn.weight * torch.rsqrt(var + bn.eps)
     shift = bn.bias - mean * inv
     if need_minmax:
-        pooled = torch.where(inv >= 0, out[0], out[1]) * inv + shift
+        pooled = (torch.where(inv >= 0, out[0].to(inv.dtype),
+                              out[1].to(inv.dtype)) * inv + shift)
     else:
         pooled = out[0] * inv + x.shape[1] * shift
-    return torch.relu(pooled) if act_relu else pooled
+    pooled = torch.relu(pooled) if act_relu else pooled
+    return pooled if d is None else pooled.to(d)
 
 
-def _single_scale(num_scales: int) -> None:
-    if num_scales != 1:
-        raise NotImplementedError("the multi-scale branch is not ported yet")
+def _eval_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
+    """Eval conv3 -> bn3 -> (relu) -> pool of the literal stack (the JAX
+    package's eval ``_pooled_tail``, which bf16 activations take): c = x @ W
+    + b in the activation dtype, the running-statistics affine in fp32, the
+    pool, cast back. For the max pool the affine and relu go after it, on
+    max_n c (min_n c where the scale is negative): fp32 rounding is
+    monotone, so that is the same number, and no (B, n, C) fp32 tensor is
+    formed. Rows go in chunks that bound the (rows, n, C) temporaries."""
+    d = conv.act_dtype or x.dtype
+    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    shift = bn.bias - bn.running_mean * inv
+    k, bias = conv.kernel().to(d), conv.bias.to(d)
+    rows = max(1, _EVAL_TAIL_CHUNK // max(1, x.shape[1] * k.shape[1]))
+    out = []
+    for s in range(0, x.shape[0], rows):
+        c = torch.matmul(x[s:s + rows].to(d), k) + bias
+        if sym_op == "max":
+            cmin, cmax = torch.aminmax(c, dim=1)
+            y = torch.where(inv >= 0, cmax.to(inv.dtype), cmin.to(inv.dtype))
+            y = y * inv + shift
+            out.append(torch.relu(y) if act_relu else y)
+        else:
+            y = c.to(inv.dtype) * inv + shift
+            out.append(torch.sum(torch.relu(y) if act_relu else y, dim=1))
+    return torch.cat(out).to(d)
+
+
+def _scale_pool(h: torch.Tensor, num_scales: int, sym_op: str = "max"):
+    """Pool each of the ``num_scales`` equal segments of the point axis and
+    concatenate them scale-major along the channels (reference
+    model.py:48-56, 219-230): (B, n, C) -> (B, num_scales * C)."""
+    b, n, c = h.shape
+    h = h.reshape(b, num_scales, n // num_scales, c)
+    h = torch.amax(h, dim=2) if sym_op == "max" else torch.sum(h, dim=2)
+    return h.reshape(b, num_scales * c)
 
 
 class _STNTrunk(nn.Module):
@@ -223,12 +323,18 @@ class _STNTrunk(nn.Module):
     model.py:41-64, 100-122)."""
 
     def __init__(self, in_features: int, net_size_max: int,
-                 out_features: int, num_scales: int = 1):
+                 out_features: int, num_scales: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        _single_scale(num_scales)
+        self.num_scales = num_scales
+        self.act_dtype = dtype
         self.conv1 = PLinear(in_features, 64, conv=True)
         self.conv2 = PLinear(64, 128, conv=True)
         self.conv3 = PLinear(128, net_size_max, conv=True)
+        if num_scales > 1:
+            self.fc0 = PLinear(net_size_max * num_scales, net_size_max,
+                               conv=False)
+            self.bn0 = BN(net_size_max)
         self.fc1 = PLinear(net_size_max, net_size_max // 2, conv=False)
         self.fc2 = PLinear(net_size_max // 2, net_size_max // 4, conv=False)
         self.fc3 = PLinear(net_size_max // 4, out_features, conv=False)
@@ -237,19 +343,34 @@ class _STNTrunk(nn.Module):
         self.bn3 = BN(net_size_max)
         self.bn4 = BN(net_size_max // 2)
         self.bn5 = BN(net_size_max // 4)
+        set_act_dtype(self, dtype)
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         # the transformers pool with max whatever the encoder's sym_op, then
         # relu (it commutes with the max)
-        if self.training:
+        literal = self.num_scales > 1 or self.act_dtype is not None
+        if not literal and self.training:
             h = _conv_bn_relu(x, self.conv1, self.bn1)
             h = _conv_bn_relu(h, self.conv2, self.bn2)
             h = _pooled_tail(h, self.conv3, self.bn3, "max", act_relu=True)
-        else:
+        elif not literal:
             layers = (_chain_layer(self.conv1, self.bn1),
                       _chain_layer(self.conv2, self.bn2),
                       _chain_layer(self.conv3, self.bn3))
             h = torch.relu(chain_pool(x.contiguous(), layers, sym_op="max"))
+        else:
+            h = _conv_bn_relu(x, self.conv1, self.bn1)
+            h = _conv_bn_relu(h, self.conv2, self.bn2)
+            if self.num_scales > 1:
+                h = torch.relu(self.bn3(self.conv3(h)))
+                h = _scale_pool(h, self.num_scales)
+            elif self.training:
+                h = _pooled_tail(h, self.conv3, self.bn3, "max",
+                                 act_relu=True)
+            else:
+                h = _eval_tail(h, self.conv3, self.bn3, "max", act_relu=True)
+        if self.num_scales > 1:
+            h = torch.relu(self.bn0(self.fc0(h)))
         h = torch.relu(self.bn4(self.fc1(h)))
         h = torch.relu(self.bn5(self.fc2(h)))
         return self.fc3(h)
@@ -259,8 +380,8 @@ class STN(_STNTrunk):
     """Feature transformer: (B, n, dim) -> (B, dim, dim) matrix + identity."""
 
     def __init__(self, net_size_max: int = 1024, dim: int = 64,
-                 num_scales: int = 1):
-        super().__init__(dim, net_size_max, dim * dim, num_scales)
+                 num_scales: int = 1, dtype: torch.dtype | None = None):
+        super().__init__(dim, net_size_max, dim * dim, num_scales, dtype)
         self.dim = dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -273,8 +394,9 @@ class QSTN(_STNTrunk):
     """Quaternion point transformer: (B, n, 3) -> rotation (B, 3, 3) and the
     quaternion (B, 4); a zero network output is the identity."""
 
-    def __init__(self, net_size_max: int = 1024, num_scales: int = 1):
-        super().__init__(3, net_size_max, 4, num_scales)
+    def __init__(self, net_size_max: int = 1024, num_scales: int = 1,
+                 dtype: torch.dtype | None = None):
+        super().__init__(3, net_size_max, 4, num_scales, dtype)
 
     def forward(self, x: torch.Tensor):
         h = self.trunk(x)
@@ -286,28 +408,39 @@ class QSTN(_STNTrunk):
 class PointNetFeat(nn.Module):
     """Shared-MLP point encoder (reference model.py:134-234): optional QSTN
     rotation -> MLP(64, 64) -> optional 64-d feature STN -> MLP(64, 128,
-    output_size) -> max or sum pool. (B, n, 3) -> (B, output_size)."""
+    output_size) -> max or sum pool. (B, n, 3) -> (B, output_size), or with
+    ``num_scales`` segments of the point axis (B, output_size *
+    num_scales**2)."""
 
     def __init__(self, net_size_max: int = 1024, output_size: int = 1024,
                  use_point_stn: bool = True, use_feat_stn: bool = True,
-                 sym_op: str = "max", num_scales: int = 1):
+                 sym_op: str = "max", num_scales: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        _single_scale(num_scales)
         if sym_op not in ("max", "sum"):
             raise ValueError(f"Unsupported symmetric operation: {sym_op}")
         self.sym_op = sym_op
-        self.stn1 = QSTN(net_size_max) if use_point_stn else None
+        self.num_scales = num_scales
+        self.act_dtype = dtype
+        self.stn1 = (QSTN(net_size_max, num_scales, dtype) if use_point_stn
+                     else None)
         self.conv0a = PLinear(3, 64, conv=True)
         self.conv0b = PLinear(64, 64, conv=True)
         self.bn0a = BN(64)
         self.bn0b = BN(64)
-        self.stn2 = STN(net_size_max, 64) if use_feat_stn else None
+        self.stn2 = (STN(net_size_max, 64, num_scales, dtype)
+                     if use_feat_stn else None)
         self.conv1 = PLinear(64, 64, conv=True)
         self.conv2 = PLinear(64, 128, conv=True)
         self.conv3 = PLinear(128, output_size, conv=True)
         self.bn1 = BN(64)
         self.bn2 = BN(128)
         self.bn3 = BN(output_size)
+        if num_scales > 1:
+            self.conv4 = PLinear(output_size, output_size * num_scales,
+                                 conv=True)
+            self.bn4 = BN(output_size * num_scales)
+        set_act_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor):
         trans = trans_quat = trans2 = None
@@ -318,17 +451,33 @@ class PointNetFeat(nn.Module):
         h = _conv_bn_relu(h, self.conv0b, self.bn0b)
         if self.stn2 is not None:
             trans2 = self.stn2(h)
-            # einsum("bij,bnj->bni"), in fp32
+            # einsum("bij,bnj->bni"), in the activation dtype
             h = torch.bmm(h, trans2.transpose(1, 2))
         # no relu after bn3 in the single-scale encoder (model.py:209-230)
-        if self.training:
+        literal = self.num_scales > 1 or self.act_dtype is not None
+        if not literal and self.training:
             h = _conv_bn_relu(h, self.conv1, self.bn1)
             h = _conv_bn_relu(h, self.conv2, self.bn2)
             h = _pooled_tail(h, self.conv3, self.bn3, self.sym_op,
                              act_relu=False)
-        else:
+        elif not literal:
             layers = (_chain_layer(self.conv1, self.bn1),
                       _chain_layer(self.conv2, self.bn2),
                       _chain_layer(self.conv3, self.bn3))
             h = chain_pool(h.contiguous(), layers, sym_op=self.sym_op)
+        else:
+            h = _conv_bn_relu(h, self.conv1, self.bn1)
+            h = _conv_bn_relu(h, self.conv2, self.bn2)
+            if self.num_scales > 1:
+                # the (output_size -> output_size * num_scales) expansion,
+                # then each scale segment pooled (model.py:207-230)
+                h = self.bn3(self.conv3(h))
+                h = self.bn4(self.conv4(torch.relu(h)))
+                h = _scale_pool(h, self.num_scales, self.sym_op)
+            elif self.training:
+                h = _pooled_tail(h, self.conv3, self.bn3, self.sym_op,
+                                 act_relu=False)
+            else:
+                h = _eval_tail(h, self.conv3, self.bn3, self.sym_op,
+                               act_relu=False)
         return h, trans, trans_quat, trans2

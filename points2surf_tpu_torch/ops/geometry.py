@@ -54,8 +54,11 @@ def random_rotation(generator: torch.Generator, shape=(),
 
 
 def transform_points(pts: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
-    """Rotate points: (..., n, 3) by (..., 3, 3) -> (..., n, 3), in fp32."""
-    return torch.matmul(pts, rot.transpose(-1, -2))
+    """Rotate points: (..., n, 3) by (..., 3, 3) -> (..., n, 3), in the
+    promoted dtype of the two (a bf16 rotation turns fp32 points fp32, as in
+    the JAX package)."""
+    dtype = torch.promote_types(pts.dtype, rot.dtype)
+    return torch.matmul(pts.to(dtype), rot.to(dtype).transpose(-1, -2))
 
 
 def cartesian_dist(a: torch.Tensor, b: torch.Tensor,

@@ -39,6 +39,7 @@ from points2surf_tpu_torch.data.shapes import ShapeStore
 from points2surf_tpu_torch.device import require_cuda
 from points2surf_tpu_torch.models import losses as L
 from points2surf_tpu_torch.models.p2s import PointsToSurfModel
+from points2surf_tpu_torch.models.pointnet import set_act_dtype
 from points2surf_tpu_torch.models.weights import (
     sgd_state_from_checkpoint,
     sgd_state_to_checkpoint,
@@ -72,9 +73,12 @@ def output_spec(outputs):
 
 
 def build_model(opt, pred_dim: int) -> PointsToSurfModel:
-    """The model of the training options ``opt`` (float32 only)."""
-    if getattr(opt, "train_dtype", "float32") != "float32":
-        raise NotImplementedError("train_dtype=bfloat16 is not ported yet")
+    """The model of the training options ``opt``: float32 activations, or
+    bfloat16 with ``train_dtype=bfloat16`` (parameters, running statistics,
+    losses and checkpoints stay float32 either way)."""
+    dtype = (torch.bfloat16
+             if getattr(opt, "train_dtype", "float32") == "bfloat16"
+             else None)
     return PointsToSurfModel(
         net_size_max=opt.net_size,
         output_dim=pred_dim,
@@ -83,7 +87,18 @@ def build_model(opt, pred_dim: int) -> PointsToSurfModel:
         sym_op=opt.sym_op,
         single_transformer=bool(opt.single_transformer),
         shared_transformation=bool(opt.shared_transformer),
+        dtype=dtype,
     )
+
+
+def f32_switch_epoch(opt) -> int:
+    """The first epoch of precision annealing's float32 steps (with
+    ``train_dtype=bfloat16``): ``nepoch - f32_finetune_epochs``, where -1
+    stands for max(5, nepoch // 5)."""
+    tail = int(getattr(opt, "f32_finetune_epochs", 0))
+    if tail < 0:
+        tail = max(5, opt.nepoch // 5)
+    return opt.nepoch - tail
 
 
 def learning_rate(step: int, lr: float, boundaries=()) -> float:
@@ -129,9 +144,11 @@ class TrainStep:
             self.step = count
 
     def forward_loss(self, batch: dict):
-        """Train-mode forward and the weighted losses: (losses, pred)."""
+        """Train-mode forward and the weighted losses: (losses, pred). The
+        losses and metrics take a bf16 prediction in float32."""
         self.model.train()
         pred = self.model(batch)
+        pred = pred.to(torch.promote_types(pred.dtype, torch.float32))
         return L.compute_loss(pred, batch, self.outputs, self.loss_weights,
                               self.fixed_radius), pred
 
@@ -302,7 +319,7 @@ class Trainer:
         gt = torch.from_numpy(gt).to(self.device)
         small = self.train_pipe.small_cloud(n_valid)
         draws = self.train_pipe.draws(len(local_inds), pts_dev.shape[0],
-                                      small)
+                                      small, n_valid=n_valid)
         return self.steps.train_step_fused(pts_dev, q, n_valid, gt, draws,
                                            small_cloud=small)
 
@@ -388,8 +405,16 @@ class Trainer:
             ):
                 self._log(*pending_logs.popleft())
 
+        # precision annealing: with train_dtype bfloat16 the final epochs
+        # run float32 activations; parameters and SGD state are float32
+        # either way, so only the model's activation dtype switches
+        switch_epoch = f32_switch_epoch(opt)
         for epoch in range(self.start_epoch, opt.nepoch):
             t_epoch = time.time()
+            if self.model.act_dtype is not None and epoch >= switch_epoch:
+                print(f"precision annealing: switching to float32 steps at "
+                      f"epoch {epoch}")
+                set_act_dtype(self.model, None)
             if opt.identical_epochs:
                 self.train_pipe.reset()
                 self.test_pipe.reset()

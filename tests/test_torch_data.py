@@ -39,21 +39,17 @@ def inject_jax_draws(monkeypatch, pipe, fused_batch=None):
     of ``fused_batch`` rows, which JAX draws unpadded. ``pipe.reset()``
     restarts the steps, as JAX's does. Returns the step count (a list of
     one int)."""
-    from test_torch_patches import jax_draws, jax_train_draws
+    from test_torch_patches import first_rows, jax_draws, jax_train_draws
 
     step = [0]
 
-    def draws(b, n, small_cloud=False):
+    def draws(b, n, small_cloud=False, n_valid=None):
         step[0] += 1
         key = jax.random.fold_in(jax.random.key(pipe.seed), step[0])
         rows = b if b == fused_batch else jpipe._run_bucket(b)
         d = (jax_train_draws if pipe.augment else jax_draws)(
-            key, rows, n, pipe.cfg, small_cloud)
-        dev = pipe.store.device
-        sub = (d.offset.to(dev), d.logu[:b].to(dev))
-        if pipe.augment:
-            return tp.TrainDraws(*sub, d.rot[:b].to(dev))
-        return tp.SubsampleDraws(*sub)
+            key, rows, n, pipe.cfg, small_cloud, n_valid)
+        return first_rows(d, b).to(pipe.store.device)
 
     reset = pipe.reset
 

@@ -10,6 +10,10 @@ set, equal ``.idx`` files and ``.xyz.npy`` distances within 1e-4, and the
 port's MSE and Hausdorff/Chamfer CSVs must equal JAX's byte for byte on the
 same inputs.
 
+The inference dtype follows the JAX package's rule (``test_eval_dtype``);
+bf16 activations are held against JAX in ``tests/test_torch_dtype.py``, ball
+mode and the uniform sub-sample in ``tests/test_torch_options.py``.
+
 ``cuda``-marked: the evaluator on the card against the CPU with the same
 draws, at the query slice's tolerance (rtol 1e-3, atol 1e-4), the chain
 kernels launched.
@@ -63,11 +67,12 @@ def _inject_jax_draws(monkeypatch, jax, seed):
 
     step = [0]
 
-    def draw_batch(gen, b, n, cfg, small_cloud=False, train=False):
+    def draw_batch(gen, b, n, cfg, small_cloud=False, train=False,
+                   n_valid=None):
         step[0] += 1
         key = jax.random.fold_in(jax.random.key(seed), step[0])
         return (jax_train_draws if train else jax_draws)(key, b, n, cfg,
-                                                         small_cloud)
+                                                         small_cloud, n_valid)
 
     monkeypatch.setattr(tev, "draw_batch", draw_batch)
 
@@ -170,16 +175,24 @@ def test_postprocess_skips_debug_outputs():
         np.tanh(pred[:, 0].numpy()) ** 2 * 2.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("train_dtype,eval_dtype,ported", [
-    ("float32", "auto", True),
-    ("float32", "bfloat16", False),
-    ("bfloat16", "auto", False),
-    ("bfloat16", "float32", True),  # a JAX model trained in bf16
+@pytest.mark.parametrize("train_dtype,eval_dtype,env,want", [
+    ("float32", "auto", None, None),
+    ("float32", "bfloat16", None, torch.bfloat16),
+    ("bfloat16", "auto", None, torch.bfloat16),
+    ("bfloat16", "float32", None, None),  # a JAX model trained in bf16
+    ("float32", "auto", "bfloat16", torch.bfloat16),  # P2S_EVAL_DTYPE
+    ("bfloat16", "auto", "float32", None),
+    ("bfloat16", "float32", "bfloat16", None),  # the flag wins
 ])
-def test_eval_dtype(tmp_path, train_dtype, eval_dtype, ported):
-    """float32 is the only inference dtype ported; bfloat16 raises."""
+def test_eval_dtype(tmp_path, monkeypatch, train_dtype, eval_dtype, env,
+                    want):
+    """The inference activation dtype: --eval_dtype, with 'auto'
+    P2S_EVAL_DTYPE, with 'auto' again the checkpoint's train_dtype (the JAX
+    package's rule); parameters stay float32 and the options unchanged."""
     from points2surf_tpu_torch.train.trainer import Trainer
 
+    if env is not None:
+        monkeypatch.setenv("P2S_EVAL_DTYPE", env)
     models = str(tmp_path / "models")
     opt = train_opt(str(tmp_path / "train"))
     tckpt.save_state(os.path.join(models, "t_model.npz"),
@@ -188,12 +201,9 @@ def test_eval_dtype(tmp_path, train_dtype, eval_dtype, ported):
     tckpt.save_params_namespace(os.path.join(models, "t_params.json"), opt)
     e_opt = _eval_opt(ABC, models, str(tmp_path / "out"), False)
     e_opt.eval_dtype = eval_dtype
-    if not ported:
-        with pytest.raises(NotImplementedError):
-            tev.load_model_for_eval(e_opt, "t", device="cpu")
-        return
     model, t_opt = tev.load_model_for_eval(e_opt, "t", device="cpu")
     assert t_opt.train_dtype == train_dtype and not model.training
+    assert model.act_dtype == want
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
@@ -223,9 +233,10 @@ def test_evaluator_on_cuda_matches_cpu(tmp_path, monkeypatch, cuda_device,
     for dev in (cuda_device, torch.device("cpu")):
         gen = torch.Generator().manual_seed(7)
 
-        def draw_batch(g, b, n, cfg, small_cloud=False, train=False):
-            d = tp.draw_batch(gen, b, n, cfg, small_cloud, train)
-            return type(d)(*(t.to(dev) for t in vars(d).values()))
+        def draw_batch(g, b, n, cfg, small_cloud=False, train=False,
+                       n_valid=None):
+            d = tp.draw_batch(gen, b, n, cfg, small_cloud, train, n_valid)
+            return d.to(dev)
 
         monkeypatch.setattr(tev, "draw_batch", draw_batch)
         e_opt = _eval_opt(data, models, str(tmp_path / dev.type), rec)

@@ -117,8 +117,16 @@ def test_output_spec_and_build_model_match_jax():
     params = jm.init(jax.random.key(0), dummy, True)["params"]
     assert sum(p.numel() for p in model.parameters()) == sum(
         np.asarray(p).size for p in jax.tree.leaves(params))
-    with pytest.raises(NotImplementedError):
-        tt.build_model(_opt(train_dtype="bfloat16"), 2)
+    # bfloat16 activations: the same parameters, in float32
+    model = tt.build_model(_opt(train_dtype="bfloat16"), 2)
+    jm = jt.build_model(_opt(train_dtype="bfloat16"), 2)
+    assert model.act_dtype == torch.bfloat16 and jm.dtype == jnp.bfloat16
+    params = jm.init(jax.random.key(0), dummy, True)["params"]
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert {np.asarray(p).dtype for p in jax.tree.leaves(params)} == {
+        np.dtype(np.float32)}
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        np.asarray(p).size for p in jax.tree.leaves(params))
 
 
 def test_eval_step_matches_jax(rng):

@@ -112,7 +112,8 @@ def test_load_reference_pth_strips_data_parallel_prefix(rng, tmp_path):
 
 def test_train_mode_and_multiscale_raise():
     """Train mode runs (batch statistics, running statistics updated, a
-    gradient for every parameter); the multi-scale branch still raises."""
+    gradient for every parameter), and so does the multi-scale branch,
+    which raised before it was ported."""
     from points2surf_tpu_torch.models.pointnet import PointNetFeat
 
     model = TorchP2S(net_size_max=NET)  # modules start in train mode
@@ -124,5 +125,73 @@ def test_train_mode_and_multiscale_raise():
     assert not torch.equal(model.feat_local.bn1.running_var, before)
     pred.square().sum().backward()
     assert all(p.grad is not None for p in model.parameters())
-    with pytest.raises(NotImplementedError):
-        PointNetFeat(net_size_max=NET, num_scales=2)
+    feat = PointNetFeat(net_size_max=NET, output_size=32, num_scales=2)
+    out = feat(torch.randn(4, 2 * 24, 3))[0]
+    assert out.shape == (4, 32 * 2 ** 2)
+    out.square().sum().backward()
+    assert all(p.grad is not None for p in feat.parameters())
+
+
+MS = dict(net_size_max=128, output_size=64, use_point_stn=True,
+          use_feat_stn=True, num_scales=2)
+
+
+@pytest.mark.parametrize("sym_op", ["max", "sum"])
+def test_multiscale_feat_matches_jax(rng, tmp_path, sym_op):
+    """PointNetFeat(num_scales=2), the reference's multi-scale encoder
+    (per-scale pools, the STNs' fc0/bn0, the conv4/bn4 expansion): JAX's
+    weights bridged into the port (and back, and through a reference
+    ``.pth``), one train-mode forward (output and running statistics) and
+    the eval forward after it, within 1e-4. The transformers' last layers
+    start at zero, as in ``tests/test_torch_train.py``: at a random init a
+    train-mode transformer amplifies the two packages' float32 rounding
+    about tenfold each (7.6e-4 of 7.4 here with both)."""
+    from test_torch_train import _identity_transformers
+
+    from points2surf_tpu.models.pointnet import PointNetFeat as JaxFeat
+    from points2surf_tpu_torch.models.pointnet import PointNetFeat
+    from points2surf_tpu_torch.models.weights import (
+        flax_from_state_dict, load_reference_pth)
+
+    x = rng.randn(6, 2 * 24, 3).astype(np.float32) * 0.5
+    jm = JaxFeat(sym_op=sym_op, **MS)
+    v = jm.init(jax.random.key(2), jnp.asarray(x), True)
+    params = jax.tree.map(np.asarray, _identity_transformers(v["params"]))
+    stats = jax.tree.map(np.asarray, v["batch_stats"])
+    (want_train, *_), mut = jm.apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x), True,
+        mutable=["batch_stats"])
+    variables = {"params": params, "batch_stats": mut["batch_stats"]}
+    want_eval = jm.apply(variables, jnp.asarray(x), False)[0]
+
+    model = PointNetFeat(sym_op=sym_op, **MS)
+    state = state_dict_from_flax(params, stats)
+    model.load_state_dict(state, strict=True)
+    assert {"stn1.fc0.weight", "stn2.bn0.running_var", "conv4.weight",
+            "bn4.running_mean"} <= set(state)
+    # the bridge both ways, and a reference .pth
+    back = flax_from_state_dict(model.state_dict())
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(
+            (params, stats))):
+        np.testing.assert_array_equal(got, want)
+    path = tmp_path / "ms.pth"
+    torch.save({"module." + k: t for k, t in state.items()}, path)
+    loaded = load_reference_pth(PointNetFeat(sym_op=sym_op, **MS), str(path))
+    for key, val in loaded.state_dict().items():
+        assert torch.equal(val, state[key]), key
+
+    got_train = model(torch.from_numpy(x))[0]
+    assert got_train.shape == (6, 64 * 4)
+    np.testing.assert_allclose(got_train.detach().numpy(),
+                               np.asarray(want_train), rtol=1e-4, atol=1e-4)
+    want_stats = state_dict_from_flax(params, jax.tree.map(
+        np.asarray, mut["batch_stats"]))
+    for key, val in model.state_dict().items():
+        if key.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(val.numpy(), want_stats[key].numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=key)
+    model.eval()
+    with torch.inference_mode():
+        got_eval = model(torch.from_numpy(x))[0]
+    np.testing.assert_allclose(got_eval.numpy(), np.asarray(want_eval),
+                               rtol=1e-4, atol=1e-4)

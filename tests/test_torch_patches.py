@@ -10,6 +10,8 @@ the port always selects exactly, and JAX's approximate training selection
 (``approx_max_k``) is exact on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,9 +37,47 @@ def exact_jax_selection(monkeypatch):
     jax.clear_caches()
 
 
-def jax_draws(key, b, n, cfg, small_cloud):
-    """The sub-sample draws of ``points2surf_tpu.ops.patches`` for ``key``."""
+def jax_ball_draws(key, b, n, cfg):
+    """Ball mode's priorities as ``points2surf_tpu.ops.patches`` draws them
+    for ``key`` and a batch of ``b`` rows, served block by block: one
+    ``uniform(fold_in(k_sel, ti), (tile, M))`` per Morton-ordered tile, and
+    for the dense path one ``uniform(fold_in(k_sel, ci), (qc, N))`` per JAX
+    query chunk of ``qc`` rows, of which the port's chunk takes its rows."""
+    k_sel = jax.random.split(key, 3)[0]
+    qc = min(cfg.query_chunk, b)
+    while b % qc != 0:
+        qc -= 1
+
+    def source(kind, index, shape):
+        if kind == "tiles":
+            t, tile, m = shape
+            u = [np.asarray(jax.random.uniform(jax.random.fold_in(k_sel, ti),
+                                               (tile, m))) for ti in range(t)]
+            return torch.from_numpy(np.stack(u))
+        rows, cols = shape
+        first, last = index // qc, (index + rows - 1) // qc
+        u = np.concatenate([np.asarray(jax.random.uniform(
+            jax.random.fold_in(k_sel, ci), (qc, cols)))
+            for ci in range(first, last + 1)])
+        start = index - first * qc
+        return torch.from_numpy(u[start:start + rows].copy())
+
+    return tp.BallDraws(source)
+
+
+def jax_draws(key, b, n, cfg, small_cloud, n_valid=None):
+    """The draws of ``points2surf_tpu.ops.patches`` for ``key``: the
+    sub-sample's (the uniform mode's ids below ``max(n_valid, 1)``) and in
+    ball mode the selection's priorities."""
     _, sub_key, _ = jax.random.split(key, 3)
+    if cfg.fixed_subsample:
+        sub_key = jax.random.key(42)
+    ball = None if cfg.knn_mode else jax_ball_draws(key, b, n, cfg)
+    if cfg.uniform_subsample and not small_cloud:
+        ids = np.asarray(jax.random.randint(
+            sub_key, (b, cfg.sub_sample_size), 0, max(int(n_valid), 1)))
+        return tp.SubsampleDraws(None, None, ids=torch.from_numpy(
+            ids.astype(np.int64)), ball=ball)
     stride, n_cand = tp.subsample_candidates(n, cfg, small_cloud)
     offset = 0
     if stride:
@@ -51,17 +91,27 @@ def jax_draws(key, b, n, cfg, small_cloud):
         minval=jnp.finfo(jnp.float32).tiny, maxval=1.0)))
         for ci in range(b // qc)]
     return tp.SubsampleDraws(torch.tensor(offset),
-                             torch.from_numpy(np.concatenate(logu)))
+                             torch.from_numpy(np.concatenate(logu)),
+                             ball=ball)
 
 
-def jax_train_draws(key, b, n, cfg, small_cloud=False):
+def jax_train_draws(key, b, n, cfg, small_cloud=False, n_valid=None):
     """The training-batch draws of ``points2surf_tpu.ops.patches`` for
-    ``key``: the sub-sample's and the augmentation's rotations."""
+    ``key``: :func:`jax_draws` and the augmentation's rotations."""
     from points2surf_tpu.ops import geometry as jg
 
-    d = jax_draws(key, b, n, cfg, small_cloud)
+    d = jax_draws(key, b, n, cfg, small_cloud, n_valid)
     rot = np.asarray(jg.random_rotation(jax.random.split(key, 3)[2], (b,)))
-    return tp.TrainDraws(d.offset, d.logu, torch.from_numpy(rot.copy()))
+    return tp.TrainDraws(d.offset, d.logu, torch.from_numpy(rot.copy()),
+                         ids=d.ids, ball=d.ball)
+
+
+def first_rows(d, b):
+    """Draws ``d`` of a JAX batch cut to its first ``b`` rows (JAX pads a
+    pipeline run to a power-of-two bucket)."""
+    cut = {f: getattr(d, f)[:b] for f in ("logu", "ids", "rot")
+           if getattr(d, f, None) is not None}
+    return dataclasses.replace(d, **cut)
 
 
 def _cloud(rng, n=N):
@@ -100,6 +150,7 @@ def _certified(pts, q, n_valid, cfg_kw):
                         k, jcfg, tile, jax.random.key(0), m=m)[3]
     t = tp._tile_select(torch.from_numpy(pts), torch.from_numpy(q), n_valid,
                         k, tile, m)[2]
+    t = torch.all(t)
     assert bool(t) == bool(j)
     return bool(t)
 
@@ -167,16 +218,36 @@ def test_port_draws_shape_and_range():
 
 
 def test_unported_modes_raise(rng):
+    """Ball mode and the uniform sub-sample, once raising, now extract (from
+    a Generator, in eval and train mode); train mode without the rotations
+    still raises, and so does ball mode without its priorities."""
     pts = torch.from_numpy(_cloud(rng))
     gen = torch.Generator().manual_seed(0)
+    k, s = KW["points_per_patch"], KW["sub_sample_size"]
     for kw in ({"patch_radius": 0.1}, {"uniform_subsample": True}):
-        with pytest.raises(NotImplementedError):
-            tp.extract_patches(pts, pts[:4], N, gen,
-                               cfg=tp.PatchConfig(**KW, **kw))
+        cfg = tp.PatchConfig(**KW, **kw)
+        for train in (False, True):
+            out = tp.extract_patches(pts, pts[:4], N, gen, cfg=cfg,
+                                     train=train)
+            assert out["patch_pts_ps"].shape == (4, k, 3)
+            assert out["pts_sub_sample_ms"].shape == (4, s, 3)
+            assert bool(torch.isfinite(out["patch_pts_ps"]).all())
+            if cfg.knn_mode and not train:  # rows of the cloud itself
+                sub = out["pts_sub_sample_ms"][:, :, None, :]
+                assert bool((sub == pts).all(-1).any(-1).all())
+            elif not cfg.knn_mode:  # the fixed radius
+                assert torch.equal(out["patch_radius_ms"],
+                                   torch.full((4,), 0.1))
     # train mode needs the rotations: a Generator or TrainDraws
     cfg = tp.PatchConfig(**KW)
     draws = tp.draw_subsample(gen, 4, N, cfg)
     with pytest.raises(TypeError):
         tp.extract_patches(pts, pts[:4], N, draws, cfg=cfg, train=True)
+    with pytest.raises(TypeError):  # ball mode needs its priorities
+        tp.extract_patches(pts, pts[:4], N, draws,
+                           cfg=tp.PatchConfig(**KW, patch_radius=0.1))
+    with pytest.raises(ValueError):  # the uniform ids need n_valid
+        tp.draw_subsample(gen, 4, N, tp.PatchConfig(**KW,
+                                                    uniform_subsample=True))
     out = tp.extract_patches(pts, pts[:4], N, gen, cfg=cfg, train=True)
     assert out["patch_pts_ps"].shape == (4, KW["points_per_patch"], 3)

@@ -170,9 +170,19 @@ def test_resume_from_snapshot(tmp_path, monkeypatch):
 
 
 def test_bfloat16_raises(tmp_path):
-    with pytest.raises(NotImplementedError):
-        TorchTrainer(train_opt(str(tmp_path), train_dtype="bfloat16"),
-                     device="cpu")
+    """train_dtype=bfloat16, which raised before it was ported, builds the
+    bf16-activation model (float32 parameters, bf16 predictions) and trains
+    an epoch; f32_finetune_epochs 0 keeps bf16 to the end, and the
+    checkpoint is float32."""
+    tr = TorchTrainer(train_opt(str(tmp_path), train_dtype="bfloat16",
+                                f32_finetune_epochs=0), device="cpu")
+    assert tr.model.act_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+    tr.train()
+    assert tr.model.act_dtype == torch.bfloat16 and tr.global_step == 3
+    with np.load(tmp_path / "models" / "t_model.npz") as flat:
+        assert {flat[k].dtype for k in flat.files} <= {np.dtype(np.float32),
+                                                       np.dtype(np.int32)}
 
 
 @pytest.fixture
@@ -187,10 +197,10 @@ def _cpu_draws(monkeypatch, pipe, seed):
     GPU and a CPU run see the same numbers."""
     gen = torch.Generator().manual_seed(seed)
 
-    def draws(b, n, small_cloud=False):
-        d = tp.draw_batch(gen, b, n, pipe.cfg, small_cloud, train=True)
-        return tp.TrainDraws(*(t.to(pipe.store.device)
-                               for t in (d.offset, d.logu, d.rot)))
+    def draws(b, n, small_cloud=False, n_valid=None):
+        d = tp.draw_batch(gen, b, n, pipe.cfg, small_cloud, train=True,
+                          n_valid=n_valid)
+        return d.to(pipe.store.device)
 
     monkeypatch.setattr(pipe, "draws", draws)
 
