@@ -77,7 +77,22 @@ the reconstruction of a 256^3 mesh:
    128 of the batch's rows against the CPU, patches/s at batch 1000 and a
    step at batch 64 against the CPU, no kernel launched); ``full_train``
    at the reference's defaults (ball mode) for one epoch and ``full_eval``
-   with its reconstruction at grid 64.
+   with its reconstruction at grid 64;
+11. dataset generation (``ops/raycast.py``, ``ops/meshdist.py``,
+   ``datagen/``, ``cli/make_dataset.py``): ``signed_distance`` on
+   abc_minimal's 2,000 query points of each mesh against the reference's
+   trimesh ground truth (``05_query_dist``) and against the CPU,
+   ``closest_point_on_mesh`` card against CPU; every full-resolution scan
+   of the largest ABC mesh (16,158 faces) on the card, ms per scan and
+   peak memory, its first scan held ray for ray against the CPU; the
+   ``make_dataset`` CLI on four procedural meshes at abc_minimal's
+   ``settings.ini``, seconds by stage and by mesh, every stage directory
+   and split file, one mesh's distances against the CPU and
+   ``reconstruct_gt`` of it at grid 128 (watertight, Hausdorff to the
+   input within 2 voxels); one ``full_train`` epoch on the generated
+   dataset (``pooled_tail`` 5 per step); each device op at these shapes:
+   ms per call, peak memory, the operations and bytes of its eager ops,
+   and its bound.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -175,6 +190,25 @@ CLI_GRID = 64
 # against B targets and fails, in the JAX package too
 CLI_OUTPUTS = ("imp_surf_magnitude", "imp_surf_sign", "patch_pts_ids",
                "p_index")
+# phase 11: dataset generation. The device ops at the largest bundled ABC
+# mesh (16,158 faces): its full-resolution scans and abc_minimal's 2,000
+# query points; the make_dataset CLI on DATAGEN_MESHES procedural meshes at
+# abc_minimal's settings; reconstruct_gt at grid DATAGEN_GRID on one of
+# them; one training epoch on the generated dataset at the reference's
+# defaults (ball mode) with batch DRIVER_BATCH and DATAGEN_PATCHES patches
+# per shape
+DATAGEN_BIG = "00011084_fddd53ce45f640f3ab922328_trimesh_019.ply"
+DATAGEN_MESHES = 4
+DATAGEN_GRID = 128
+DATAGEN_PATCHES = 500
+DATAGEN_TIMED = 5
+DATAGEN_STAGES = ("00_base_meshes", "01_base_meshes_ply",
+                  "02_meshes_cleaned", "03_meshes", "04_pts", "04_pts_vis",
+                  "04_pts_locations", "04_pts_rotations", "04_hits_per_scan",
+                  "05_query_pts", "05_query_dist")
+# the device ops are elementwise fp32 outside the tensor cores: 67 TFLOP/s
+# (H100 SXM data sheet)
+PEAK_FLOPS_FP32 = 67e12
 # the whole chain in bf16 against its plain version, rtol and atol x
 # max|ref|: one bf16 ulp (2^-8) of the output, which is what an h1 or h2
 # operand one ulp off (the two fp32 sums straddle a rounding boundary) can
@@ -2422,6 +2456,451 @@ def phase_cli(torch, np, device, tmp):
     return launched
 
 
+class _Calls:
+    """Wraps functions that their callers look up on their module at each
+    call while it lives: counts the calls and keeps the outputs of the
+    first one; with ``timed``, the seconds of each call (ending in
+    ``torch.cuda.synchronize()``) in call order."""
+
+    def __init__(self, torch, targets, timed=False):
+        self.torch, self.targets, self.timed = torch, targets, timed
+        self.calls, self.first, self.seconds = {}, {}, {}
+
+    def __enter__(self):
+        self.real = [(mod, name, getattr(mod, name))
+                     for mod, name in self.targets]
+        for mod, name, fn in self.real:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.timed:
+                self.torch.cuda.synchronize()
+                self.seconds.setdefault(name, []).append(
+                    time.perf_counter() - t0)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            self.first.setdefault(name, out)
+            return out
+        return wrapper
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.real:
+            setattr(mod, name, fn)
+
+
+def _op_census(torch, fn):
+    """(operations, bytes) of the eager PyTorch ops that ``fn()`` runs: an
+    elementwise op counts one operation per output element (``addcmul``,
+    the ray caster's FMA, two), a reduction one per input element; every
+    op, dtype conversions included, reads the distinct elements of its
+    tensor inputs (a broadcast operand once) and writes its outputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    elementwise = {"add", "sub", "rsub", "mul", "div", "reciprocal", "abs",
+                   "neg", "sqrt", "atan2", "lt", "le", "gt", "ge", "eq", "ne",
+                   "where", "clamp", "clamp_min", "minimum", "maximum",
+                   "isfinite"}
+    reductions = {"sum", "amin", "argmin", "min", "topk"}
+    views = {"view", "_unsafe_view", "expand", "slice", "select",
+             "unsqueeze", "squeeze", "t", "transpose", "permute", "alias",
+             "detach", "as_strided", "lift_fresh"}
+    total = {"ops": 0.0, "bytes": 0.0}
+
+    def distinct(t):
+        n = 1
+        for size, stride in zip(t.shape, t.stride()):
+            n *= size if stride else 1
+        return n * t.element_size()
+
+    class Census(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in views:
+                return out
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            outs = [t for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor)]
+            if name in ("index", "gather"):  # reads what it writes
+                total["bytes"] += 2 * sum(distinct(t) for t in outs)
+            else:
+                total["bytes"] += sum(distinct(t) for t in ins + outs)
+            if name in elementwise:
+                total["ops"] += outs[0].numel()
+            elif name == "addcmul":
+                total["ops"] += 2 * outs[0].numel()
+            elif name in reductions:
+                total["ops"] += ins[0].numel()
+            return out
+
+    with Census():
+        fn()
+    return total["ops"], total["bytes"]
+
+
+def _two_best(torch, v, f, q, device, rows=256):
+    """The least and second-least distance of each query over every face
+    (all pairs, on the card)."""
+    from points2surf_tpu_torch.ops import meshdist
+    from points2surf_tpu_torch.ops.raycast import planes
+
+    tri = torch.as_tensor(v[f], device=device)
+    a, b, c = (planes(tri[None, :, k]) for k in range(3))
+    qt = torch.as_tensor(q, device=device)
+    best = []
+    for r0 in range(0, len(q), rows):
+        sq, _ = meshdist._point_triangle_closest(
+            planes(qt[r0:r0 + rows, None]), a, b, c)
+        best.append(sq.topk(2, dim=1, largest=False).values.sqrt())
+    return torch.cat(best).cpu().numpy()
+
+
+def _surface_hausdorff(np, a, b, device, n=50000):
+    """Hausdorff distance of two meshes: exact point-to-mesh distances (on
+    the card) of each mesh's vertices and ``n`` area-weighted surface
+    samples to the other mesh."""
+    from points2surf_tpu_torch.ops import meshdist
+
+    worst = 0.0
+    for (src, dst), seed in (((a, b), 0), ((b, a), 1)):
+        pts = np.concatenate([src.sample_surface(
+            n, np.random.RandomState(seed))[0], src.vertices])
+        _, d, _ = meshdist.closest_point_on_mesh(dst.vertices, dst.faces,
+                                                 pts, device=device)
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def _datagen_ground_truth(torch, np, device, abc):
+    """Phase 11, part 1: signed_distance on abc_minimal's 2,000 query points
+    of each mesh against the reference's trimesh ground truth and against
+    the CPU; closest_point_on_mesh card against CPU."""
+    from points2surf_tpu_torch.ops import meshdist
+    from points2surf_tpu_torch.utils import mesh_io
+
+    for name in sorted(os.listdir(os.path.join(abc, "03_meshes"))):
+        v, f = mesh_io.load_mesh(os.path.join(abc, "03_meshes", name))
+        q = np.load(os.path.join(abc, "05_query_pts", name + ".npy"))
+        gt = np.load(os.path.join(abc, "05_query_dist", name + ".npy"))
+        d_g = meshdist.signed_distance(v, f, q, device=device)
+        d_c = meshdist.signed_distance(v, f, q, device="cpu")
+        err_gt = float(np.abs(np.clip(d_g, -1.0, 1.0) - gt).max())
+        signs = float((np.sign(np.clip(d_g, -1.0, 1.0))
+                       == np.sign(gt)).mean())
+        err_cpu = float(np.abs(d_g - d_c).max())
+        cp_g, dist_g, id_g = meshdist.closest_point_on_mesh(v, f, q,
+                                                            device=device)
+        cp_c, dist_c, id_c = meshdist.closest_point_on_mesh(v, f, q,
+                                                            device="cpu")
+        two = _two_best(torch, v, f, q, device)
+        clear = (two[:, 1] - two[:, 0]) > 1e-6
+        id_equal = bool((id_g[clear] == id_c[clear]).all())
+        err_cp = float(np.abs(dist_g - dist_c).max())
+        print(f"[datagen] {name}: {len(f)} faces, {len(q)} queries: "
+              f"|card - trimesh GT| max {err_gt:.3e}, signs {signs:.2%}; "
+              f"|card - CPU| max {err_cpu:.3e}; closest point distances "
+              f"|card - CPU| max {err_cp:.3e}, points "
+              f"{float(np.abs(cp_g - cp_c).max()):.3e}, face ids equal on "
+              f"{int(clear.sum())} queries whose two best faces differ by "
+              f"> 1e-6 ({int((id_g != id_c).sum())} differ overall)")
+        check(err_gt <= 1e-4 and signs == 1.0,
+              f"{name}: signed distance off the ground truth")
+        check(err_cpu <= 1e-5, f"{name}: signed distance card != CPU")
+        check(err_cp <= 1e-5 and id_equal,
+              f"{name}: closest point card != CPU")
+
+
+def _datagen_scan(torch, np, device, abc, settings):
+    """Phase 11, part 2: every scan of the largest ABC mesh at 176 x 144 on
+    the card (ms per scan, peak memory); its first scan on the CPU, held
+    ray for ray."""
+    from points2surf_tpu_torch.datagen import scanner
+    from points2surf_tpu_torch.ops import raycast
+    from points2surf_tpu_torch.utils import file_utils, mesh_io
+    from points2surf_tpu_torch.utils.mesh import Mesh
+
+    mesh_file = os.path.join(abc, "03_meshes", DATAGEN_BIG)
+    mesh = Mesh(*mesh_io.load_mesh(mesh_file))
+    locs, rots, sigma = scanner.scan_poses(
+        mesh_file, settings["num_scans_per_mesh_min"],
+        settings["num_scans_per_mesh_max"],
+        settings["scanner_noise_sigma_min"],
+        settings["scanner_noise_sigma_max"])
+    seed = file_utils.filename_to_hash(mesh_file)
+    scanner.scan_mesh(mesh, locs[:1], rots[:1], sigma, seed=seed,
+                      device=device)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    target = [(raycast, "raycast_padded")]
+    with _Calls(torch, target) as calls_g:
+        t0 = time.perf_counter()
+        p_g, n_g, h_g = scanner.scan_mesh(mesh, locs, rots, sigma, seed=seed,
+                                          device=device)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with _Calls(torch, target) as calls_c:
+        t0 = time.perf_counter()
+        p_c, n_c, h_c = scanner.scan_mesh(mesh, locs[:1], rots[:1], sigma,
+                                          seed=seed, device="cpu")
+        sec_cpu = time.perf_counter() - t0
+    (t_g, id_g), (t_c, id_c) = (
+        (t.cpu().numpy(), i.cpu().numpy())
+        for t, i in (calls_g.first["raycast_padded"],
+                     calls_c.first["raycast_padded"]))
+    m_g = np.isfinite(t_g) & (t_g <= scanner.MAX_DISTANCE)
+    m_c = np.isfinite(t_c) & (t_c <= scanner.MAX_DISTANCE)
+    agree = float((m_g == m_c).mean())
+    both = m_g & m_c
+    same = both & (id_g == id_c)
+    err_t = float(np.abs(t_g[same] - t_c[same]).max())
+    rows_g = (np.cumsum(m_g) - 1)[same]
+    rows_c = (np.cumsum(m_c) - 1)[same]
+    err_p = float(np.abs(p_g[rows_g] - p_c[rows_c]).max())
+    err_n = float(np.abs(n_g[rows_g] - n_c[rows_c]).max())
+    rays = scanner.TOF_RES_X * scanner.TOF_RES_Y
+    print(f"[datagen] scan {DATAGEN_BIG}: {len(mesh.faces)} faces, "
+          f"{len(locs)} scans x {rays} rays, sigma {sigma:.5f}: "
+          f"{1e3 * sec / len(locs):.2f} ms per scan on the card (host clock, "
+          f"{calls_g.calls['raycast_padded']} raycast calls), {sum(h_g)} "
+          f"points, peak {peak:.3f} GiB above the mesh; scan 0 on the CPU "
+          f"{sec_cpu:.2f} s: hit masks agree on {agree:.4%} of rays, "
+          f"{int(same.sum())} rays hit the same triangle on both, |t| max "
+          f"{err_t:.3e}, points {err_p:.3e}, normals {err_n:.3e}")
+    check(agree >= 0.999, f"scan hit masks agree on {agree:.4%} of rays")
+    check(err_t <= 1e-5 and err_p <= 1e-5 and err_n <= 1e-6,
+          "scan: t, points or normals card != CPU")
+    check(calls_g.calls["raycast_padded"] == len(locs),
+          "scan_mesh did not cast once per scan")
+
+
+def _datagen_cli(torch, np, device, tmp, card):
+    """Phase 11, part 3: ``cli/make_dataset.main`` with DATAGEN_MESHES
+    procedural meshes at abc_minimal's settings, timed by stage and by
+    mesh, its outputs checked; the distances of one mesh against the CPU;
+    reconstruct_gt of that mesh at grid DATAGEN_GRID."""
+    import shutil
+
+    from points2surf_tpu_torch.cli import make_dataset as cli
+    from points2surf_tpu_torch.datagen import make_dataset as mk
+    from points2surf_tpu_torch.datagen import procedural, scanner
+    from points2surf_tpu_torch.ops import meshdist, raycast
+    from points2surf_tpu_torch.utils import mesh_io
+    from points2surf_tpu_torch.utils.mesh import Mesh
+
+    name = "proc_smoke"
+    root = os.path.join(tmp, "datagen")
+    ds = os.path.join(root, name)
+    os.makedirs(ds)
+    shutil.copy(os.path.join(ROOT, "datasets", DRIVER_DATASET,
+                             "settings.ini"), ds)
+    stages = [(procedural, "make_procedural_meshes")] + [
+        (mk, s) for s in ("convert_meshes", "clean_meshes",
+                          "normalize_meshes", "sample_scans",
+                          "get_query_pts_dist_ms", "make_dataset_splits")]
+    per_mesh = [(scanner, "scan_mesh"), (mk, "_get_and_save_query_pts")]
+    ops = [(raycast, "raycast_padded"), (meshdist, "signed_distance_padded"),
+           (meshdist, "closest_point_padded")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Calls(torch, stages, timed=True) as st, \
+            _Calls(torch, per_mesh, timed=True) as pm, \
+            _Calls(torch, ops) as op:
+        cli.main(["--name", name, "--base_dir", root, "--procedural",
+                  str(DATAGEN_MESHES)], device=device)
+    total = time.perf_counter() - t0
+    print(f"[datagen] make_dataset CLI: {DATAGEN_MESHES} procedural meshes "
+          f"at {DRIVER_DATASET}'s settings.ini, {total:.2f} s on {card}; "
+          "by stage (s): " + ", ".join(
+              f"{k} {sum(v):.2f}" for k, v in st.seconds.items()))
+    for stage in DATAGEN_STAGES:
+        n = len(os.listdir(os.path.join(ds, stage)))
+        check(n == DATAGEN_MESHES, f"{stage} holds {n} files")
+    for split in ("trainset.txt", "valset.txt", "testset.txt"):
+        check(os.path.isfile(os.path.join(ds, split)), f"no {split}")
+    meshes = {}
+    # sample_scans and get_query_pts_dist_ms take the meshes in this order
+    for i, f in enumerate(sorted(os.listdir(os.path.join(ds, "03_meshes")))):
+        m = Mesh(*mesh_io.load_mesh(os.path.join(ds, "03_meshes", f)))
+        scans = len(np.load(os.path.join(ds, "04_pts_locations",
+                                         f[:-4] + ".npz"))["locations"])
+        pts = np.load(os.path.join(ds, "04_pts", f[:-4] + ".xyz.npy"))
+        meshes[f] = m
+        print(f"[datagen]   {f}: {len(m.faces)} faces, {scans} scans "
+              f"{pm.seconds['scan_mesh'][i]:.3f} s, {len(pts)} points; "
+              f"2,000 queries "
+              f"{pm.seconds['_get_and_save_query_pts'][i]:.3f} s")
+    print(f"[datagen] device op calls in the CLI run: {op.calls} "
+          f"(one raycast per scan, one distance call per mesh)")
+    big = [f for f, m in meshes.items() if len(m.faces) >= 1000]
+    one = min(big, key=lambda f: len(meshes[f].faces)) if big else \
+        max(meshes, key=lambda f: len(meshes[f].faces))
+    m = meshes[one]
+    q = np.load(os.path.join(ds, "05_query_pts", one + ".npy"))
+    d_ds = np.load(os.path.join(ds, "05_query_dist", one + ".npy"))
+    d_cpu = np.clip(meshdist.signed_distance(m.vertices, m.faces, q,
+                                             device="cpu"), -1.0, 1.0)
+    err = float(np.abs(d_ds - d_cpu).max())
+    print(f"[datagen] {one}: the dataset's distances against the CPU's: "
+          f"max {err:.3e}")
+    check(err <= 1e-5, f"{one}: the dataset's distances != the CPU's")
+
+    rgt = os.path.join(tmp, "datagen_rgt")
+    os.makedirs(os.path.join(rgt, "ds", "03_meshes"))
+    shutil.copy(os.path.join(ds, "03_meshes", one),
+                os.path.join(rgt, "ds", "03_meshes"))
+    t0 = time.perf_counter()
+    mk.reconstruct_gt(rgt, "ds", grid_resolution=DATAGEN_GRID,
+                      device=device)
+    t_rgt = time.perf_counter() - t0
+    rec = Mesh(*mesh_io.load_mesh(os.path.join(
+        rgt, "ds", "06_reconstruction_gt", one)))
+    hd = _surface_hausdorff(np, m, rec, device)
+    tight = len(rec.faces) > 0 and _watertight(np, rec.faces)
+    # the volume spans [-1, 1]^3 (ops/voxel.py), so a voxel is 2 / grid
+    voxel = 2.0 / DATAGEN_GRID
+    print(f"[datagen] reconstruct_gt {one} at grid {DATAGEN_GRID} (100,000 "
+          f"GT queries): {t_rgt:.2f} s, {len(rec.faces)} faces, watertight "
+          f"{tight}, Hausdorff to the input {hd:.5f} = {hd / voxel:.3f} "
+          f"voxels of {voxel} (exact point-to-mesh distances of each mesh's "
+          f"vertices and 50,000 surface samples)")
+    check(tight, "reconstruct_gt's mesh is not watertight")
+    check(hd <= 2.0 * voxel,
+          f"reconstruct_gt: Hausdorff {hd:.5f} > 2 voxels")
+    return ds, op.calls
+
+
+def _datagen_train(torch, np, device, tmp, ds):
+    """Phase 11, part 4: one epoch of the port's full_train on the generated
+    dataset at the reference's defaults (ball mode, r = 0.05) with batch
+    DRIVER_BATCH and DATAGEN_PATCHES patches per shape; pooled_tail
+    launches one per trunk and encoder per step."""
+    from points2surf_tpu_torch.cli import full_train
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+
+    with open(os.path.join(ds, "trainset.txt")) as f:
+        train = [ln.strip() for ln in f if ln.strip()]
+    n_patches = sum(min(DATAGEN_PATCHES, len(np.load(os.path.join(
+        ds, "05_query_dist", s + ".ply.npy"), mmap_mode="r")))
+        for s in train)
+    steps = -(-n_patches // DRIVER_BATCH)
+    torch.cuda.synchronize()
+    _zero_launches(pooled_tail_reductions)
+    t0 = time.perf_counter()
+    full_train.main(["--name", "p2s_datagen", "--indir", ds,
+                     "--outdir", os.path.join(tmp, "datagen_models"),
+                     "--logdir", os.path.join(tmp, "datagen_logs"),
+                     "--nepoch", "1", "--batchSize", str(DRIVER_BATCH),
+                     "--patches_per_shape", str(DATAGEN_PATCHES),
+                     "--outputs", *CLI_OUTPUTS])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = pooled_tail_reductions.launches
+    print(f"[datagen] full_train on the generated dataset ({len(train)} "
+          f"train shapes, reference defaults, batch {DRIVER_BATCH}, "
+          f"{DATAGEN_PATCHES} patches per shape, 1 epoch): {steps} steps in "
+          f"{sec:.2f} s, pooled_tail launches {launches}")
+    check(os.path.isfile(os.path.join(tmp, "datagen_models",
+                                      "p2s_datagen_model.npz")),
+          "full_train wrote no checkpoint")
+    check(launches == 5 * steps,
+          f"pooled_tail launched {launches} times, not 5 per step over "
+          f"{steps} steps")
+    return launches
+
+
+def _datagen_ops(torch, np, device, card, abc, settings, calls):
+    """Phase 11, part 5: each device op at phase 11's shapes on the largest
+    ABC mesh (one full scan's rays; the 2,000 query points): ms per call
+    (CUDA events), peak memory, the operations and bytes of the eager ops
+    it runs, and its bound."""
+    from points2surf_tpu_torch.datagen import scanner
+    from points2surf_tpu_torch.ops import meshdist, raycast
+    from points2surf_tpu_torch.utils import mesh_io
+
+    mesh_file = os.path.join(abc, "03_meshes", DATAGEN_BIG)
+    v, f = mesh_io.load_mesh(mesh_file)
+    q = torch.as_tensor(np.load(os.path.join(
+        abc, "05_query_pts", DATAGEN_BIG + ".npy")), device=device)
+    locs, rots, _ = scanner.scan_poses(
+        mesh_file, settings["num_scans_per_mesh_min"],
+        settings["num_scans_per_mesh_max"],
+        settings["scanner_noise_sigma_min"],
+        settings["scanner_noise_sigma_max"])
+    rot = scanner._quat_to_rotmat_np(rots[0])
+    dirs = torch.as_tensor((scanner._frustum_dirs() @ rot).astype(
+        np.float32), device=device)
+    origins = torch.as_tensor((rot.T @ (-locs[0])).astype(np.float32),
+                              device=device).expand(dirs.shape)
+    tri = raycast.pad_triangles(v, f, device=device)
+    n_tris = tri[3]
+    rays = dirs.shape[0]
+    fns = {
+        "raycast_padded": (lambda: raycast.raycast_padded(origins, dirs,
+                                                          *tri),
+                           rays, 24 * rays + 8 * rays),
+        "signed_distance_padded": (
+            lambda: meshdist.signed_distance_padded(q, *tri), len(q),
+            12 * len(q) + 8 * len(q)),
+        "closest_point_padded": (
+            lambda: meshdist.closest_point_padded(q, *tri), len(q),
+            12 * len(q) + 20 * len(q)),
+    }
+    out = {}
+    for name, (fn, rows, io_bytes) in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = _events_ms(torch, fn, DATAGEN_TIMED)
+        ops, moved = _op_census(torch, fn)
+        padded = rows * tri[0].shape[0]
+        per_pair = ops / padded
+        pairs = rows * n_tris
+        min_bytes = io_bytes + 36 * n_tris
+        bound_ms, bound_by = _bound(per_pair * pairs, min_bytes,
+                                    PEAK_FLOPS_FP32)
+        out[name] = {
+            "rows": rows, "triangles": n_tris, "padded": tri[0].shape[0],
+            "ms": ms, "peak_gib": peak, "ops_per_pair": per_pair,
+            "unfused_bytes_per_pair": moved / padded,
+            "unfused_bytes_ms": 1e3 * moved / PEAK_BYTES,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "calls_in_cli": calls.get(name, 0)}
+    print(f"[datagen] device ops at phase 11's shapes ({DATAGEN_BIG}, "
+          f"{n_tris} triangles padded to {tri[0].shape[0]}; fp32 bound at "
+          f"67 TFLOP/s, bytes at 3.35 TB/s; {card}): {json.dumps(out)}")
+
+
+def phase_datagen(torch, np, device, tmp, card):
+    """Phase 11: dataset generation on the card (parts 1-5 above). Returns
+    the training epoch's pooled_tail launches."""
+    from points2surf_tpu_torch.datagen import make_dataset as mk
+
+    t0 = time.perf_counter()
+    abc = os.path.join(ROOT, "datasets", DRIVER_DATASET)
+    settings = mk.read_settings(os.path.join(ROOT, "datasets"),
+                                DRIVER_DATASET)
+    _datagen_ground_truth(torch, np, device, abc)
+    _datagen_scan(torch, np, device, abc, settings)
+    ds, calls = _datagen_cli(torch, np, device, tmp, card)
+    launches = _datagen_train(torch, np, device, tmp, ds)
+    _datagen_ops(torch, np, device, card, abc, settings, calls)
+    _card_state("datagen")
+    print(f"[datagen] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2504,6 +2983,7 @@ def main() -> int:
         print(f"[options] phase 10 took {time.perf_counter() - t10:.1f} s: "
               f"ball queries/s {ball['qps']}, uniform train patches/s "
               f"{uni['pps']}, bf16 activations {b16}")
+        gen_launches = phase_datagen(torch, np, device, tmp, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the query, train and driver paths: "
           f"{mlp_launches} "
@@ -2519,8 +2999,9 @@ def main() -> int:
     # computes any of these functions, so library_ms is null. launches sums
     # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
     # the bf16 query, train step and reconstruction of phase 9; phase 10's
-    # ball-mode queries, uniform-mode train steps and CLI run; each counted
-    # from 0 just before it), launches_by_path splits them. max_abs_err
+    # ball-mode queries, uniform-mode train steps and CLI run; phase 11's
+    # training epoch on the generated dataset; each counted from 0 just
+    # before it), launches_by_path splits them. max_abs_err
     # takes phase 10's call sites (n = 1200 and 75, ball mode) too.
     dl = drv["launches"]
 
@@ -2540,7 +3021,8 @@ def main() -> int:
                        "cli": cli_count("chain_pool")},
         "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"],
                         "uniform_train": uni["launches"],
-                        "cli": cli_count("pooled_tail_reductions")},
+                        "cli": cli_count("pooled_tail_reductions"),
+                        "datagen_train": gen_launches},
         "mlp_maxpool": {"all": mlp_launches},
         "chain_head_bf16": {
             "query": bfl["query"]["chain_head"][1],

@@ -1,4 +1,4 @@
-"""Reconstruction metrics: Chamfer, Hausdorff, SDF MSE
+"""Reconstruction metrics: Chamfer, Hausdorff, SDF MSE, classification
 (a copy of ``points2surf_tpu/evalx/metrics.py`` on the port's ``mesh_io``;
 the same CSV bytes for the same inputs).
 
@@ -247,3 +247,71 @@ def mesh_comparison(
     with open(report_name, "w") as f:
         f.write("\n".join(csv_lines))
     return results
+
+
+def compare_predictions_binary(ground_truth, predicted,
+                               prediction_name="comparison") -> dict:
+    """Confusion-matrix comparison of two sign arrays
+    (reference evaluation.py:39-81); NaN-on-empty semantics preserved."""
+    gt = np.asarray(ground_truth) > 0.0
+    pr = np.asarray(predicted) > 0.0
+    if gt.shape != pr.shape:
+        raise ValueError(
+            "The ground truth matrix and the predicted matrix have "
+            "different sizes!"
+        )
+    tp = float(np.sum(pr & gt))
+    fp = float(np.sum(pr & ~gt))
+    fn = float(np.sum(~pr & gt))
+    tn = float(np.sum(~pr & ~gt))
+    total = tp + fp + fn + tn
+
+    def _div(a, b):
+        return a / b if b != 0 else float("nan")
+
+    precision = _div(tp, tp + fp)
+    recall = _div(tp, tp + fn)
+    return {
+        "comp_name": prediction_name,
+        "predictions": total,
+        "positives": tp + fp,
+        "pos_gt": tp + fn,
+        "true_pos": tp,
+        "true_neg": tn,
+        "false_pos": fp,
+        "false_neg": fn,
+        "true": tp + tn,
+        "false": fp + fn,
+        "accuracy": _div(tp + tn, total),
+        "precision": precision,
+        "recall": recall,
+        "f1_score": _div(2.0 * precision * recall, precision + recall),
+    }
+
+
+def visualize_patch(patch_pts_ps, query_point_ps, pts_sub_sample_ms,
+                    query_point_ms, file_path, patch_pts_ms=None):
+    """Debug PLY of one training sample: blue local patch, yellow query
+    (patch space), green global sub-sample, magenta query (model space)
+    (reference evaluation.py:182-219)."""
+    def filter_padding(pts, query):
+        same = np.isclose(pts, np.asarray(query)[None, :]).sum(1) == 3
+        return pts[~same]
+
+    patch_pts_ps = filter_padding(np.asarray(patch_pts_ps),
+                                  np.asarray(query_point_ps))
+    groups = [
+        (patch_pts_ps, (0.0, 0.0, 1.0)),
+        (np.atleast_2d(query_point_ps), (1.0, 1.0, 0.0)),
+        (np.asarray(pts_sub_sample_ms), (0.0, 1.0, 0.0)),
+        (np.atleast_2d(query_point_ms), (1.0, 0.0, 1.0)),
+    ]
+    if patch_pts_ms is not None:
+        groups.append((filter_padding(np.asarray(patch_pts_ms),
+                                      np.asarray(query_point_ms)),
+                       (1.0, 0.0, 0.0)))
+    pts = np.concatenate([g[0] for g in groups], axis=0)
+    colors = np.concatenate(
+        [np.tile(c, (len(p), 1)) for p, c in groups], axis=0
+    )
+    mesh_io.write_ply(file_path, pts, colors=colors)

@@ -1,13 +1,20 @@
-"""File utilities (counterpart of the part of
-``points2surf_tpu/utils/file_utils.py`` that meshing and the data pipeline
-use): the directory of an output file, the mtime test of an incremental
-build, and the cached ``.npy`` load of a text array."""
+"""File utilities (counterpart of ``points2surf_tpu/utils/file_utils.py``):
+the per-file seed, the directory of an output file, the mtime test of an
+incremental build, the cached ``.npy`` load of a text array and the
+single-array npz container."""
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
+
+
+def filename_to_hash(file_path: str) -> int:
+    """Deterministic per-file seed (reference file_utils.py:6-12)."""
+    h = hashlib.md5(os.path.basename(file_path).encode()).hexdigest()
+    return int(h, 16) % (2**32)
 
 
 def make_dir_for_file(path: str) -> None:
@@ -60,3 +67,14 @@ def load_npy_if_valid(
     if arr.dtype != np.dtype(dtype):
         arr = arr.astype(dtype)
     return arr
+
+
+def save_npz(path: str, arr) -> None:
+    """Sparse-friendly compressed single-array container
+    (reference file_utils.py:28-73 role)."""
+    np.savez_compressed(path, arr=arr)
+
+
+def load_npz(path: str):
+    with np.load(path) as d:
+        return d["arr"] if "arr" in d.files else d[d.files[0]]

@@ -1,7 +1,7 @@
-"""Mesh IO (counterpart of the part of ``points2surf_tpu/utils/mesh_io.py``
-that meshing and its tests use): ASCII OFF/COFF and PLY (ascii and binary
-little endian). The writers produce the same bytes as the JAX package's for
-the same arrays.
+"""Mesh and point-cloud IO (counterpart of
+``points2surf_tpu/utils/mesh_io.py``): ASCII OFF/COFF, PLY (ascii and binary
+little endian), XYZ and BlenSor's ASCII PCD. The writers produce the same
+bytes as the JAX package's for the same arrays.
 """
 
 from __future__ import annotations
@@ -252,6 +252,29 @@ def read_ply(path: str):
     return vertices, np.asarray(faces, np.int64).reshape(-1, 3)
 
 
+# ---------------------------------------------------------------- XYZ ----
+
+
+def write_xyz(path: str, points: np.ndarray, normals=None, colors=None):
+    """ASCII XYZ writer (reference point_cloud.py:63-104)."""
+    file_utils.make_dir_for_file(path)
+    points = np.asarray(points).reshape(-1, 3)
+    cols = [points]
+    if normals is not None:
+        cols.append(np.asarray(normals).reshape(-1, 3))
+    if colors is not None:
+        cols.append(np.asarray(colors).reshape(-1, 3))
+    np.savetxt(path, np.concatenate(cols, axis=1), fmt="%.8g")
+
+
+def load_xyz(path: str) -> np.ndarray:
+    """XYZ reader dropping NaN rows (reference point_cloud.py:14-21)."""
+    data = np.loadtxt(path).astype(np.float32)
+    data = np.atleast_2d(data)
+    nan_rows = np.isnan(data).any(axis=1)
+    return data[~nan_rows]
+
+
 def load_mesh(path: str):
     """Dispatch by extension -> (vertices, faces)."""
     lower = path.lower()
@@ -260,3 +283,35 @@ def load_mesh(path: str):
     if lower.endswith(".ply"):
         return read_ply(path)
     raise ValueError(f"unsupported mesh format: {path}")
+
+
+# ---------------------------------------------------------------- PCD ----
+
+
+def load_pcd(file_in: str):
+    """BlenSor ASCII PCD reader (reference point_cloud.py:107-163).
+
+    Returns (points (N, 3) float64, header dict); NaN rows (missed rays)
+    are dropped.
+    """
+    with open(file_in) as f:
+        lines = f.readlines()
+    header_lines = lines[:11]
+    expected = ["#", "VERSION", "FIELDS", "SIZE", "TYPE", "COUNT", "WIDTH",
+                "HEIGHT", "VIEWPOINT", "POINTS", "DATA"]
+    header = {}
+    for ln, field in zip(header_lines, expected):
+        parts = ln.split(" ")
+        if parts[0] != field:
+            raise ValueError(f'"{field}" expected but not found in pcd header')
+        header[field] = " ".join(parts[1:]).strip()
+    header["_file_"] = file_in
+    rows = []
+    for ln in lines[11:]:
+        t = ln.split(" ")[:3]
+        if len(t) < 3:
+            continue
+        x, y, z = float(t[0]), float(t[1]), float(t[2])
+        if x == x and y == y and z == z:  # NaN filter
+            rows.append((x, y, z))
+    return np.asarray(rows, np.float64), header

@@ -1,10 +1,12 @@
 """Process-pool fan-out for the host stages (counterpart of
-``points2surf_tpu/utils/mp.py``; reference source/base/utils_mp.py). The
-metrics' mesh comparisons use it."""
+``points2surf_tpu/utils/mp.py``; reference source/base/utils_mp.py): the
+metrics' mesh comparisons, dataset generation's convert / clean / normalize
+stages and the external tools (Blender, meshlab)."""
 
 from __future__ import annotations
 
 import multiprocessing
+import subprocess
 
 
 def start_process_pool(worker_function, parameters, num_processes,
@@ -21,3 +23,14 @@ def start_process_pool(worker_function, parameters, num_processes,
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(processes=num_processes, maxtasksperchild=1) as pool:
         return pool.starmap(worker_function, parameters)
+
+
+def mp_worker(call: str) -> int:
+    """Run a shell command (external tools: Blender/meshlab equivalents,
+    reference utils_mp.py:5-18)."""
+    try:
+        proc = subprocess.run(call, shell=True, check=False)
+        return proc.returncode
+    except Exception as e:
+        print(f"mp_worker failed for call {call!r}: {e}")
+        return -1

@@ -48,7 +48,20 @@ def test_port_imports_no_jax():
             "points2surf_tpu_torch.cli.eval_args, "
             "points2surf_tpu_torch.cli.full_train, "
             "points2surf_tpu_torch.cli.full_eval, "
-            "points2surf_tpu_torch.cli.full_run; "
+            "points2surf_tpu_torch.cli.full_run, "
+            "points2surf_tpu_torch.utils.mesh, "
+            "points2surf_tpu_torch.ops.raycast, "
+            "points2surf_tpu_torch.ops.meshdist, "
+            "points2surf_tpu_torch.datagen.scanner, "
+            "points2surf_tpu_torch.datagen.procedural, "
+            "points2surf_tpu_torch.datagen.make_dataset, "
+            "points2surf_tpu_torch.datagen.make_pc_dataset, "
+            "points2surf_tpu_torch.datagen.blensor, "
+            "points2surf_tpu_torch.datagen.synthetic, "
+            "points2surf_tpu_torch.datagen.deepsdf, "
+            "points2surf_tpu_torch.cli.make_dataset, "
+            "points2surf_tpu_torch.evalx.baselines, "
+            "points2surf_tpu_torch.evalx.figures; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'points2surf_tpu.')) or "
             "m == 'points2surf_tpu']; print(bad); sys.exit(bool(bad))")
