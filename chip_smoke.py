@@ -92,7 +92,21 @@ the reconstruction of a 256^3 mesh:
    input within 2 voxels); one ``full_train`` epoch on the generated
    dataset (``pooled_tail`` 5 per step); each device op at these shapes:
    ms per call, peak memory, the operations and bytes of its eager ops,
-   and its bound.
+   and its bound;
+12. data parallelism (``parallel/``): two processes on the one card joined
+   by gloo (NCCL takes one rank per card), each with half of phase 6's
+   batch (zero-started transformer last layers), three fused steps, each
+   against the one-process step on the whole batch from the same state
+   (losses rtol 1e-4, the first
+   step's gradients within 1e-3 * max|g| of the model), the parameters and
+   running statistics bit-identical on both ranks, five ``pooled_tail``
+   launches per step on each rank and the arg indices that differ from
+   the one-process step; the one-process steps launch no collective;
+   each rank's ms per step, patches/s and the all-reduces' share of a
+   step; the evaluator on phase 8's checkpoint over abc_minimal's three
+   shapes (first 150 queries each), round-robin over the two ranks: every
+   shape written once, each rank's files against the CPU run of the same
+   share; each kernel against its plain version at the ranks' call sites.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -202,6 +216,15 @@ DATAGEN_MESHES = 4
 DATAGEN_GRID = 128
 DATAGEN_PATCHES = 500
 DATAGEN_TIMED = 5
+# phase 12: data parallelism. PARALLEL_RANKS gloo ranks share the card, each
+# with its rows of phase 6's batch of TRAIN_BATCH, PARALLEL_STEPS fused
+# steps against one process on the whole batch, then PARALLEL_TIMED timed
+# steps twice (as they run, and with each all-reduce timed); every rank
+# stops after PARALLEL_TIMEOUT seconds
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3
+PARALLEL_TIMED = 5
+PARALLEL_TIMEOUT = 600
 DATAGEN_STAGES = ("00_base_meshes", "01_base_meshes_ply",
                   "02_meshes_cleaned", "03_meshes", "04_pts", "04_pts_vis",
                   "04_pts_locations", "04_pts_rotations", "04_hits_per_scan",
@@ -2901,7 +2924,485 @@ def phase_datagen(torch, np, device, tmp, card):
     return launches
 
 
+def _zero_transformers(torch, model):
+    """The spatial transformers' last layers at zero (their output is then
+    the identity): phase 5's remedy for near-tied max-pool args."""
+    from points2surf_tpu_torch.models.pointnet import _STNTrunk
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, _STNTrunk):
+                mod.fc3.weight.zero_()
+                mod.fc3.bias.zero_()
+    return model
+
+
+class _ArgRecorder:
+    """Keeps the max / min arg indices of every ``pooled_tail_reductions``
+    call of the model (``models/pointnet``) while it is entered."""
+
+    def __init__(self, pn):
+        self.pn, self.args = pn, []
+
+    def __enter__(self):
+        self.real = real = self.pn.pooled_tail_reductions
+
+        def tail(x, w, b):
+            out = real(x, w, b)
+            self.args.append((out[1].cpu(), out[3].cpu()))
+            return out
+
+        self.pn.pooled_tail_reductions = tail
+        return self
+
+    def __exit__(self, *exc):
+        self.pn.pooled_tail_reductions = self.real
+
+
+def _parallel_steps(torch, device, job, world, lo, hi, starts=None):
+    """PARALLEL_STEPS fused steps of the job's model on rows lo:hi of the
+    job's global batches (draws of one seeded generator on the card, each
+    rank drawing the whole batch and keeping its rows): losses, the first
+    step's gradients, the state after the last step, the arg indices, and
+    the parameters, running statistics and momentum before each step.
+    With ``starts`` (those of another run), each step starts from them."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.models.p2s import PointsToSurfModel
+    from points2surf_tpu_torch.ops.patches import draw_batch
+    from points2surf_tpu_torch.parallel import replicate
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    model = PointsToSurfModel(net_size_max=NET, output_dim=2,
+                              shared_transformation=True)
+    model.load_state_dict(job["state"])
+    model = replicate(model.to(device))
+    cfg = _train_cfg()
+    steps = make_train_step(model, OUTPUTS, lr=0.01, momentum=0.9,
+                            patch_cfg=cfg)
+    pts = job["pts"].to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    out = {"losses": [], "starts": []}
+    with _ArgRecorder(pn) as rec:
+        for i in range(PARALLEL_STEPS):
+            if starts is not None and starts[i] is not None:
+                model.load_state_dict(starts[i][0])
+                steps.load_sgd_state(starts[i][1], None)
+            opt_state = steps.optimizer.state
+            out["starts"].append(None if i == 0 else (
+                {k: v.cpu().clone() for k, v in model.state_dict().items()},
+                {k: opt_state[p]["momentum_buffer"].cpu().clone()
+                 for k, p in model.named_parameters()}))
+            q, gt = job["q"][i], job["gt"][i]
+            draws = draw_batch(gen, len(q), pts.shape[0], cfg, train=True,
+                               n_valid=job["n"])
+            if world > 1:
+                draws = draws.rows(lo, hi, chunk=cfg.query_chunk)
+            losses, _ = steps.train_step_fused(
+                pts, q[lo:hi].to(device), job["n"], gt[lo:hi].to(device),
+                draws)
+            out["losses"].append(losses.cpu())
+            if i == 0:
+                out["grads"] = {k: p.grad.cpu().clone()
+                                for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    out["state"] = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    out["args"] = rec.args
+    return out, steps, pts, gen
+
+
+def _parallel_worker(rank: str, world: str, work: str) -> int:
+    """One rank of phase 12 (``chip_smoke.py --parallel-rank R W DIR``): joins
+    the gloo group through the ``file://`` store in DIR, runs the fused
+    steps on its rows of the job's batches, times its steps and their
+    all-reduces, runs its share of the evaluator, and saves what it saw to
+    DIR/rank<R>.pt."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK="0")
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.cli import eval_args
+    from points2surf_tpu_torch.infer import evaluator
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.ops.patches import draw_batch
+    from points2surf_tpu_torch.parallel import distributed
+
+    job = torch.load(os.path.join(work, "job.pt"), weights_only=False)
+    device = torch.device(job["device"])
+    check(distributed.initialize(backend="gloo",
+                                 init_method="file://" + os.path.join(
+                                     work, "store")),
+          "initialize() did not join the group")
+    r, w = distributed.rank(), distributed.world_size()
+    lo, hi = distributed.rank_rows(TRAIN_BATCH)
+    res = {"rows": (lo, hi)}
+    pooled_tail_reductions.launches = 0
+    with _Recorder(pn) as sites:
+        out, steps, pts, gen = _parallel_steps(torch, device, job, w, lo, hi)
+        res.update(out, launches=pooled_tail_reductions.launches)
+        # ms per step and all-reduce share: PARALLEL_TIMED steps as they
+        # run, then as many with a synchronize and the host clock around
+        # each all-reduce
+        q_all = job["q_timed"].to(device)
+        gt = job["gt"][0][lo:hi].to(device)
+        cfg = steps.patch_cfg
+        real = torch.distributed.all_reduce
+        spent = [0.0, 0]
+
+        def timed(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ret = real(t, *a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return ret
+
+        secs = []
+        for instrument in (False, True):
+            distributed.barrier("timed steps")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if instrument:
+                torch.distributed.all_reduce = timed
+            try:
+                for i in range(PARALLEL_TIMED):
+                    q = q_all[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                    draws = draw_batch(
+                        gen, TRAIN_BATCH, pts.shape[0], cfg, train=True,
+                        n_valid=job["n"]).rows(lo, hi, chunk=cfg.query_chunk)
+                    steps.train_step_fused(pts, q[lo:hi], job["n"], gt,
+                                           draws)
+                torch.cuda.synchronize()
+            finally:
+                torch.distributed.all_reduce = real
+            secs.append(time.perf_counter() - t0)
+        res["timed_launches"] = pooled_tail_reductions.launches
+        res["step_s"], res["instrumented_step_s"] = (
+            s / PARALLEL_TIMED for s in secs)
+        res["allreduce_s"] = spent[0] / PARALLEL_TIMED
+        res["allreduce_calls"] = spent[1] / PARALLEL_TIMED
+        # this rank's share of the evaluator (the group's by default)
+        for f in (chain_head, chain_pool):
+            f.launches = 0
+        _parallel_eval(torch, evaluator, eval_args, job["eval"], device,
+                       os.path.join(work, f"eval_rank{r}"))
+        torch.cuda.synchronize()
+        res["eval_launches"] = {"chain_head": chain_head.launches,
+                                "chain_pool": chain_pool.launches}
+    # each kernel against its plain version at this rank's call sites
+    res["err"] = _driver_sites_check(torch, sites, f"parallel rank {r}")
+    torch.save(res, os.path.join(work, f"rank{r}.pt"))
+    distributed.barrier("done")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _parallel_eval(torch, evaluator, eval_args, spec, dev, outdir,
+                   shard=None):
+    """``points_to_surf_eval`` on the job's three-shape dataset, the
+    reconstruction and the eval pass, with draws of a seeded CPU generator
+    moved to ``dev``; ``shard`` None takes the process group's share."""
+    real_draw = evaluator.draw_batch
+    gen = torch.Generator().manual_seed(SEED + 12)
+
+    def draw(g, b, n, cfg, small_cloud=False, train=False, n_valid=None):
+        return real_draw(gen, b, n, cfg, small_cloud, train,
+                         n_valid).to(dev)
+
+    evaluator.draw_batch = draw
+    try:
+        for extra in (["--reconstruction", "True", "--query_grid_resolution",
+                       str(DRIVER_GRID), "--epsilon", "3"], []):
+            evaluator.points_to_surf_eval(eval_args.parse_arguments(
+                spec["args"] + ["--outdir", outdir] + extra), device=dev,
+                shard=shard)
+    finally:
+        evaluator.draw_batch = real_draw
+
+
+def _parallel_eval_data(np, data, tmp):
+    """The three abc_minimal shapes in one split file, each cut to its
+    first n_q GT queries (the eval pass) and the same points cached as its
+    grid queries (the reconstruction), as phase 8 cuts its first batches."""
+    import shutil
+
+    n_q = DRIVER_BATCH + DRIVER_BATCH // 2
+    root = os.path.join(tmp, "parallel_eval_data")
+    for sub in ("04_pts", "05_query_pts", "05_query_dist"):
+        os.makedirs(os.path.join(root, sub))
+    names = sorted(f[:-len(".xyz.npy")]
+                   for f in os.listdir(os.path.join(data, "04_pts")))
+    cache = os.path.join(root, "cache", f"grid_queries_r{DRIVER_GRID}_e3")
+    os.makedirs(cache)
+    for name in names:
+        shutil.copy(os.path.join(data, "04_pts", name + ".xyz.npy"),
+                    os.path.join(root, "04_pts"))
+        for sub in ("05_query_pts", "05_query_dist"):
+            np.save(os.path.join(root, sub, name + ".ply.npy"), np.load(
+                os.path.join(data, sub, name + ".ply.npy"))[:n_q])
+        np.save(os.path.join(cache, name + ".npy"), np.load(os.path.join(
+            data, "05_query_pts", name + ".ply.npy"))[:n_q])
+        t_pts = os.path.getmtime(os.path.join(root, "04_pts",
+                                              name + ".xyz.npy"))
+        os.utime(os.path.join(cache, name + ".npy"), (t_pts + 10, t_pts + 10))
+    with open(os.path.join(root, "all.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return root, names, n_q
+
+
+def _run_ranks(work, world):
+    """Start ``world`` ranks of this script on the card; fail, and stop
+    every rank, when one fails or PARALLEL_TIMEOUT passes."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(world)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(world), work], cwd=ROOT, env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            tail = f.read()[-6000:]
+        print(f"[parallel] rank {r} exit {p.returncode}; its last output:\n"
+              + "\n".join("[parallel]   " + ln for ln in tail.splitlines()))
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * world, f"phase 12: a rank failed or timed out "
+                                f"(exit codes {codes})")
+
+
+def phase_parallel(torch, np, device, model, pts_pad, n, queries, drv, tmp,
+                   card):
+    """Phase 12: data parallelism (``parallel/``). Two gloo ranks share the
+    card, each with half of phase 6's batch of TRAIN_BATCH, against the
+    one-process step on the whole batch; each rank's share of the
+    evaluator against the CPU; a world of one launches no collective."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.cli import eval_args
+    from points2surf_tpu_torch.infer import evaluator
+
+    t0 = time.perf_counter()
+    world = PARALLEL_RANKS
+    work = os.path.join(tmp, "parallel")
+    os.makedirs(work)
+    rs = np.random.RandomState(SEED + 12)
+    model = _zero_transformers(torch, copy.deepcopy(model).cpu())
+    steps_q = [torch.from_numpy(queries[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(PARALLEL_STEPS)]
+    data, names, n_q = _parallel_eval_data(
+        np, os.path.join(tmp, "datasets", DRIVER_DATASET), tmp)
+    job = {
+        "device": str(device),
+        "state": model.state_dict(), "pts": torch.from_numpy(pts_pad),
+        "n": n, "q": steps_q,
+        "gt": [torch.from_numpy((rs.randn(TRAIN_BATCH) * 0.05).astype(
+            np.float32)) for _ in range(PARALLEL_STEPS)],
+        "q_timed": torch.from_numpy(queries[-PARALLEL_TIMED * TRAIN_BATCH:]),
+        "eval": {"args": ["--indir", data, "--dataset", "all.txt",
+                          "--models", "vanilla", "--modeldir", drv["models"],
+                          "--batchSize", str(DRIVER_BATCH),
+                          "--cache_capacity", "5"]},
+    }
+    torch.save(job, os.path.join(work, "job.pt"))
+
+    # the one-process step on the whole batch, with no process group: it
+    # must launch no collective
+    check(not torch.distributed.is_initialized(),
+          "a process group exists in the one-process run")
+    calls = []
+    real = {k: getattr(torch.distributed, k)
+            for k in ("all_reduce", "broadcast", "barrier")}
+
+    def counting(name):
+        def f(*a, **k):
+            calls.append(name)
+            return real[name](*a, **k)
+        return f
+
+    # the ranks share the card with this process: hand its cached blocks
+    # back first
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[parallel] starting {world} ranks; the card has "
+          f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+    _run_ranks(work, world)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    # each one-process step starts where the ranks' step started: the
+    # transformers leave the identity after the first step, and from then
+    # on they amplify rounding tenfold and flip near-tied max-pool args
+    # (phase 5), so free-running steps part by more than rounding. Its
+    # tails take the ranks' arg indices where each is an arg of its own
+    # values (phase 5's replay): a near-tie decided the other way routes a
+    # row's gradient elsewhere, which is not what this phase tests
+    stats = {"args": 0, "own_differs": 0, "bad": 0}
+    queue = [tuple(torch.cat([res["args"][j][m] for res in ranks])
+                   for m in (0, 1)) for j in range(len(ranks[0]["args"]))]
+    real_tail = pn.pooled_tail_reductions
+
+    def replay(x, w, bias):
+        cmax, amax, cmin, amin, rsum, rsq = real_tail(x, w, bias)
+        pooled = []
+        for own, val, g in ((amax, cmax, queue[0][0]),
+                            (amin, cmin, queue[0][1])):
+            g = g.to(x.device)
+            rows = torch.gather(x, 1, g.long()[:, :, None].expand(
+                -1, -1, x.shape[2]))  # (B, C, Cin)
+            at = torch.einsum("bci,ic->bc", rows, w) + bias
+            tol = 1e-4 * float(val.abs().max())
+            stats["args"] += g.numel()
+            stats["own_differs"] += int((own != g).sum())
+            stats["bad"] += int(((at - val).abs()
+                                 > tol + 1e-4 * val.abs()).sum())
+            pooled.append((at, g))
+        queue.pop(0)
+        return pooled[0][0], pooled[0][1], pooled[1][0], pooled[1][1], \
+            rsum, rsq
+
+    for k in real:
+        setattr(torch.distributed, k, counting(k))
+    pn.pooled_tail_reductions = replay
+    try:
+        one, _, _, _ = _parallel_steps(torch, device, job, 1, 0,
+                                       TRAIN_BATCH, ranks[0]["starts"])
+    finally:
+        pn.pooled_tail_reductions = real_tail
+        for k, f in real.items():
+            setattr(torch.distributed, k, f)
+    print(f"[parallel] one process, batch {TRAIN_BATCH}, {PARALLEL_STEPS} "
+          f"fused steps (each from the ranks' state before it): losses "
+          f"{[v.tolist() for v in one['losses']]}; collectives launched "
+          f"{len(calls)} (no process group)")
+    check(not calls, "the one-process step launched a collective")
+    for r, res in enumerate(ranks):
+        per = res["rows"][1] - res["rows"][0]
+        check(per * world == TRAIN_BATCH, f"rank {r} took rows {res['rows']}")
+        n_steps = PARALLEL_STEPS
+        check(res["launches"] == 5 * n_steps
+              and res["timed_launches"] == 5 * (n_steps + 2 * PARALLEL_TIMED),
+              f"rank {r}: pooled_tail launched {res['launches']} times in "
+              f"{n_steps} steps ({res['timed_launches']} with the timed "
+              f"ones), not 5 per step")
+    # the state after the last step, bit for bit on every rank
+    same = all(torch.equal(res["state"][k], v) for res in ranks[1:]
+               for k, v in ranks[0]["state"].items())
+    print(f"[parallel] {world} gloo ranks on one card, {TRAIN_BATCH // world} "
+          f"rows each: parameters and running statistics after step "
+          f"{PARALLEL_STEPS} bit-identical on every rank: {same}; "
+          f"pooled_tail launches per rank {[r['launches'] for r in ranks]} "
+          f"in {PARALLEL_STEPS} steps")
+    check(same, "the ranks' states differ")
+    worst = 0.0
+    for i in range(PARALLEL_STEPS):
+        mean = sum(r["losses"][i] for r in ranks).double() / world
+        err = float(((mean - one["losses"][i].double()).abs()
+                     / one["losses"][i].double().abs()).max())
+        worst = max(worst, err)
+        print(f"[parallel] step {i + 1}: losses (mean over ranks) "
+              f"{mean.tolist()} vs one process {one['losses'][i].tolist()}: "
+              f"max rel err {err:.3e} (rtol 1e-4)")
+    # the first step's gradients, every element within 1e-3 of the model's
+    # largest gradient; per tensor, relative to its own largest, for the
+    # record (a ReLU input or a sub-sample key within rounding of a tie
+    # moves a tensor's gradient by more than rounding)
+    g_max = max(float(g.abs().max()) for g in one["grads"].values())
+    bad, g_worst, own = [], 0.0, (0.0, "")
+    for k, g in one["grads"].items():
+        e = float((ranks[0]["grads"][k] - g).abs().max())
+        g_worst = max(g_worst, e / g_max)
+        if float(g.abs().max()) >= 1e-6 * g_max:
+            own = max(own, (e / float(g.abs().max()), k))
+        if e > 1e-3 * g_max:
+            bad.append(k)
+    print(f"[parallel] step 1 gradients of {len(one['grads'])} tensors: "
+          f"worst max|err| / max|g| over the model {g_worst:.3e} (gate "
+          f"1e-3), outside {bad[:5]}; worst relative to its own tensor's "
+          f"max|g| {own[0]:.3e} ({own[1]})")
+    print(f"[parallel] max / min arg indices of the {PARALLEL_STEPS} steps' "
+          f"tails: the one-process step's own differ from the ranks' in "
+          f"{stats['own_differs']} of {stats['args']} (near-ties under "
+          f"another summation order; it took the ranks'), and the ranks' "
+          f"index is not an arg of its values in {stats['bad']}")
+    check(not queue and stats["bad"] == 0,
+          "a rank's arg index is not an arg of the one-process values, or "
+          "the runs made different numbers of tail calls")
+    check(worst <= 1e-4, "the ranks' losses differ from the one-process step")
+    check(not bad, "the ranks' gradients differ from the one-process step")
+
+    # the evaluator: every shape once over the ranks, each rank's files
+    # against the CPU port run with the same (rank, world)
+    sub = os.path.join("rec", "dist_ms"), os.path.join("eval", "eval")
+    seen = []
+    for r in range(world):
+        out_card = os.path.join(work, f"eval_rank{r}")
+        out_cpu = os.path.join(work, f"eval_cpu_rank{r}")
+        _parallel_eval(torch, evaluator, eval_args, job["eval"],
+                       torch.device("cpu"), out_cpu, shard=(r, world))
+        check(_files(out_card) == _files(out_cpu),
+              f"rank {r}: the card and the CPU wrote different files")
+        for d in sub:
+            for f in sorted(os.listdir(os.path.join(out_card, d))):
+                if not f.endswith(".xyz.npy"):
+                    continue
+                seen.append((d, f))
+                g, c = (np.load(os.path.join(o, d, f))
+                        for o in (out_card, out_cpu))
+                check(g.shape == c.shape == (n_q,), f"{d}/{f}: {g.shape}")
+                e = np.abs(g - c)
+                nbad = int((e > 1e-4 + 1e-3 * np.abs(c)).sum())
+                flips = int(((np.sign(g) != np.sign(c))
+                             & (np.abs(c) > 1e-4)).sum())
+                print(f"[parallel eval] rank {r} {d}/{f[:12]}: card vs CPU "
+                      f"max_abs_err {float(e.max()):.3e}, {nbad} outside "
+                      f"rtol 1e-3 / atol 1e-4, sign flips {flips}")
+                check(nbad == 0 and flips == 0,
+                      f"rank {r}'s evaluator differs from the CPU's")
+    want = sorted((d, nm + ".xyz.npy") for d in sub for nm in names)
+    print(f"[parallel eval] {len(seen)} distance files over {world} ranks "
+          f"for {len(names)} shapes x 2 passes; chain launches per rank "
+          f"{[r['eval_launches'] for r in ranks]}")
+    check(sorted(seen) == want, "the ranks did not write every shape once")
+    step_ms = [1e3 * r["step_s"] for r in ranks]
+    share = [r["allreduce_s"] / r["instrumented_step_s"] for r in ranks]
+    print(f"[parallel] {world} ranks on one card ({card}), "
+          f"{TRAIN_BATCH // world} rows each, {PARALLEL_TIMED} timed steps: "
+          f"ms per step {step_ms} (host clock), patches/s per rank "
+          f"{[TRAIN_BATCH // world / (ms / 1e3) for ms in step_ms]}; "
+          f"all-reduces per step {[r['allreduce_calls'] for r in ranks]}, "
+          f"their share of an instrumented step (a synchronize and the host "
+          f"clock around each) {share}, "
+          f"{[1e3 * r['allreduce_s'] for r in ranks]} ms per step. One card "
+          f"shared by two processes: not a scaling result")
+    err = {k: max(r["err"][k] for r in ranks) for k in ranks[0]["err"]}
+    print(f"[parallel] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": sum(r["launches"] for r in ranks),
+            "eval_launches": {k: sum(r["eval_launches"][k] for r in ranks)
+                              for k in ("chain_head", "chain_pool")},
+            "err": err}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return _parallel_worker(*sys.argv[2:5])
     try:
         import numpy as np
         import torch
@@ -2984,6 +3485,8 @@ def main() -> int:
               f"ball queries/s {ball['qps']}, uniform train patches/s "
               f"{uni['pps']}, bf16 activations {b16}")
         gen_launches = phase_datagen(torch, np, device, tmp, card)
+        par = phase_parallel(torch, np, device, model, pts_pad, n, queries,
+                             drv, tmp, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the query, train and driver paths: "
           f"{mlp_launches} "
@@ -3000,9 +3503,11 @@ def main() -> int:
     # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
     # the bf16 query, train step and reconstruction of phase 9; phase 10's
     # ball-mode queries, uniform-mode train steps and CLI run; phase 11's
-    # training epoch on the generated dataset; each counted from 0 just
-    # before it), launches_by_path splits them. max_abs_err
-    # takes phase 10's call sites (n = 1200 and 75, ball mode) too.
+    # training epoch on the generated dataset; phase 12's ranks, summed:
+    # their train steps and their shares of the evaluator; each counted
+    # from 0 just before it), launches_by_path splits them. max_abs_err
+    # takes phase 10's call sites (n = 1200 and 75, ball mode) and phase
+    # 12's (each rank's rows) too.
     dl = drv["launches"]
 
     def cli_count(name):
@@ -3013,16 +3518,19 @@ def main() -> int:
                        "mesh": mesh_launches["chain_head"],
                        "driver": dl["chain_head"],
                        "ball_query": ball["launches"]["chain_head"],
-                       "cli": cli_count("chain_head")},
+                       "cli": cli_count("chain_head"),
+                       "parallel_eval": par["eval_launches"]["chain_head"]},
         "chain_pool": {"query": launches["chain_pool"],
                        "mesh": mesh_launches["chain_pool"],
                        "driver": dl["chain_pool"],
                        "ball_query": ball["launches"]["chain_pool"],
-                       "cli": cli_count("chain_pool")},
+                       "cli": cli_count("chain_pool"),
+                       "parallel_eval": par["eval_launches"]["chain_pool"]},
         "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"],
                         "uniform_train": uni["launches"],
                         "cli": cli_count("pooled_tail_reductions"),
-                        "datagen_train": gen_launches},
+                        "datagen_train": gen_launches,
+                        "parallel": par["launches"]},
         "mlp_maxpool": {"all": mlp_launches},
         "chain_head_bf16": {
             "query": bfl["query"]["chain_head"][1],
@@ -3036,15 +3544,18 @@ def main() -> int:
     entries = (
         ("chain_head", "chain_head.cu", "chain_kernel.py:187",
          max(kern["err"]["chain_head"], drv["err"]["chain_head"],
-             opt_err["chain_head"], ball["err"]["chain_head"]), q["head"],
+             opt_err["chain_head"], ball["err"]["chain_head"],
+             par["err"]["chain_head"]), q["head"],
          q["head_plain"], *q["head_cost"]),
         ("chain_pool", "chain_pool.cu", "chain_kernel.py:187",
          max(kern["err"]["chain_pool"], drv["err"]["chain_pool"],
-             opt_err["chain_pool"], ball["err"]["chain_pool"]), q["tail"],
+             opt_err["chain_pool"], ball["err"]["chain_pool"],
+             par["err"]["chain_pool"]), q["tail"],
          q["tail_plain"], *q["tail_cost"]),
         ("pooled_tail", "pooled_tail.cu", "train_tail.py:138",
          max(tail["max_abs_err"], drv["err"]["pooled_tail"],
-             opt_err["pooled_tail"], ball["err"]["pooled_tail"]), tail["ms"],
+             opt_err["pooled_tail"], ball["err"]["pooled_tail"],
+             par["err"]["pooled_tail"]), tail["ms"],
          tail["plain_ms"], *tail["cost"]),
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,

@@ -1,7 +1,8 @@
 """Evaluation CLI flags (counterpart of ``points2surf_tpu/cli/eval_args.py``)
 — same names and defaults as the reference
 (source/points_to_surf_eval.py:16-65). ``--gpu_idx`` chooses the card
-(``cuda:<idx>``)."""
+(``cuda:<idx>``), except on a rank of a multi-process launch
+(``train_args.device_of``)."""
 
 from __future__ import annotations
 

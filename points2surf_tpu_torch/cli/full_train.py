@@ -2,6 +2,11 @@
 reference full_train.py / points_to_surf_train.py).
 
 Usage: python -m points2surf_tpu_torch.cli.full_train --name vanilla --indir ...
+       torchrun --nproc_per_node=N -m points2surf_tpu_torch.cli.full_train ...
+
+Under ``torchrun`` each rank trains on ``cuda:<LOCAL_RANK>`` with its share
+of every batch and the global batch's statistics (``parallel/``); rank 0
+writes the TensorBoard log, the checkpoints and the params.
 """
 
 from __future__ import annotations
@@ -25,15 +30,18 @@ def _summary_writer(log_dirname: str, name: str):
 
 def points_to_surf_train(opt, device="cuda"):
     """Train the model of ``opt`` (``cli/train_args``) on ``device``."""
+    from points2surf_tpu_torch.parallel import distributed
     from points2surf_tpu_torch.train.trainer import Trainer
 
-    log_dirname = os.path.join(opt.logdir, opt.name)
-    # run-collision handling (reference train.py:183-198); non-interactive:
-    # fresh runs overwrite silently, matching automated use
-    if os.path.exists(log_dirname):
-        shutil.rmtree(log_dirname, ignore_errors=True)
-
-    writer = _summary_writer(log_dirname, opt.name)
+    writer = None
+    if distributed.is_main_process():
+        log_dirname = os.path.join(opt.logdir, opt.name)
+        # run-collision handling (reference train.py:183-198);
+        # non-interactive: fresh runs overwrite silently, matching
+        # automated use
+        if os.path.exists(log_dirname):
+            shutil.rmtree(log_dirname, ignore_errors=True)
+        writer = _summary_writer(log_dirname, opt.name)
     if writer is not None:
         writer.add_scalar("LR", opt.lr, 0)
     try:
@@ -53,7 +61,14 @@ def points_to_surf_train(opt, device="cuda"):
 
 def main(args=None):
     from points2surf_tpu_torch.cli.train_args import device_of, parse_arguments
+    from points2surf_tpu_torch.parallel import distributed
 
+    # a torchrun launch joins its process group; a plain run is one process
+    if distributed.initialize():
+        print(f"multi-process: rank {distributed.rank()}/"
+              f"{distributed.world_size()} on cuda:"
+              f"{distributed.local_rank()}, batch statistics over the "
+              f"global batch")
     opt = parse_arguments(args)
     points_to_surf_train(opt, device=device_of(opt))
 

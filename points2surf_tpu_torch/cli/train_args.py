@@ -1,12 +1,16 @@
 """Training CLI flags (counterpart of ``points2surf_tpu/cli/train_args.py``)
 — same names and defaults as the reference
 (source/points_to_surf_train.py:28-134), so experiments/*.sh run by swapping
-the entry point. ``--gpu_idx`` chooses the card (``cuda:<first index>``).
+the entry point. ``--gpu_idx`` chooses the card (``cuda:<first index>``),
+except under a multi-process launch (``torchrun``), where each rank takes
+``cuda:<LOCAL_RANK>``.
 """
 
 from __future__ import annotations
 
 import argparse
+
+from points2surf_tpu_torch.parallel import distributed
 
 
 def parse_arguments(args=None):
@@ -88,7 +92,11 @@ def parse_arguments(args=None):
 
 
 def device_of(opt) -> str:
-    """The card of ``--gpu_idx``: ``cuda:<first index>``."""
+    """The card of this process: ``cuda:<LOCAL_RANK>`` on a rank of a
+    process group of more than one, else that of ``--gpu_idx``
+    (``cuda:<first index>``; the evaluation flags' one index)."""
+    if distributed.world_size() > 1:
+        return f"cuda:{distributed.local_rank()}"
     idx = opt.gpu_idx[0] if isinstance(opt.gpu_idx, (list, tuple)) \
         else opt.gpu_idx
     return f"cuda:{int(idx)}"

@@ -7,6 +7,10 @@ all near-surface grid voxel centers (reconstruction mode). The inner loop is
 the fused SDF query (``infer/query.py``): per shape, fixed-size query
 batches go through patch extraction, the eval forward and post-processing
 on the device, and each shape's model-space distances are fetched once.
+
+Under a process group the shapes go round-robin over the ranks (the JAX
+package's per-shape split over hosts): each rank evaluates and writes its
+own shapes, its draws advancing per batch that it runs.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from points2surf_tpu_torch.infer.query import (
 )
 from points2surf_tpu_torch.models.weights import load_reference_pth
 from points2surf_tpu_torch.ops.patches import PatchConfig, draw_batch
+from points2surf_tpu_torch.parallel import distributed
 from points2surf_tpu_torch.train import checkpoint as ckpt
 from points2surf_tpu_torch.train.trainer import build_model, output_spec
 from points2surf_tpu_torch.utils import file_utils, mesh_io
@@ -143,11 +148,16 @@ def load_model_for_eval(eval_opt, model_name, device="cuda"):
     return model.to(require_cuda(device)).eval(), train_opt
 
 
-def points_to_surf_eval(eval_opt, device="cuda"):
-    """Evaluate (or, with ``eval_opt.reconstruction``, reconstruct) every
-    shape of ``eval_opt.dataset`` with each model of ``eval_opt.models`` on
-    ``device`` ("cuda" unless the caller asks for the CPU)."""
+def points_to_surf_eval(eval_opt, device="cuda", shard=None):
+    """Evaluate (or, with ``eval_opt.reconstruction``, reconstruct) the
+    shapes of ``eval_opt.dataset`` with each model of ``eval_opt.models`` on
+    ``device`` ("cuda" unless the caller asks for the CPU).
+
+    ``shard=(index, count)`` takes the shapes whose position in the dataset
+    is ``index`` modulo ``count``; None takes this rank's share of the
+    process group (every shape without one)."""
     device = require_cuda(device)
+    proc, n_proc = shard or (distributed.rank(), distributed.world_size())
     models = eval_opt.models.split()
 
     for model_name in models:
@@ -207,6 +217,8 @@ def points_to_surf_eval(eval_opt, device="cuda"):
         with ThreadPoolExecutor(max_workers=1) as saver:
             save_futures = []
             for shape_ind, name in enumerate(store.shape_names):
+                if shape_ind % n_proc != proc:
+                    continue
                 shape = store.get(shape_ind)
                 pts_dev, n_valid = store.device_points(shape_ind)
                 small = n_valid < max(train_opt.sub_sample_size, 1)

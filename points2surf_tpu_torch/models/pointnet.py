@@ -33,6 +33,17 @@ saved for the backward) come from bf16 products.
 BatchNorm in train mode follows flax: the biased batch variance normalizes
 and updates the running variance, ``r = 0.9 r + 0.1 batch``.
 
+**Data parallelism** (``parallel/``): every batch statistic is taken over
+the global batch, as under the JAX package's data mesh. Each layer forms
+its statistics on this rank's rows and :func:`_global_means` sums them over
+the ranks with a gradient (``parallel.distributed.global_sum``): the BN
+layers' mean and mean square, the covariance form's mean and Gram, and the
+pooled tails' mean and mean square from the kernel's local sums, so the
+kernels run on each rank's rows (the JAX package's ``_sharded`` kernel
+wrappers). The running statistics update with the global values and stay
+equal on every rank. In a world of one nothing changes and no collective
+is launched.
+
 **Activation dtype** (``dtype=torch.bfloat16``, the JAX package's
 ``--train_dtype`` / ``--eval_dtype bfloat16``; independent of the operand
 modes above, which keep fp32 activations). As flax computes with
@@ -64,6 +75,7 @@ from points2surf_tpu_torch.ops import geometry
 from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool, fold_conv_bn
 from points2surf_tpu_torch.ops.kernels.pooled_tail import (
     pooled_tail_reductions)
+from points2surf_tpu_torch.parallel.distributed import global_sum, world_size
 
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running statistic
 # elements of the (rows, n, C) fp32 temporaries of one bf16 eval-tail chunk
@@ -135,9 +147,10 @@ class BN(nn.BatchNorm1d):
             x = x.to(self.weight.dtype)
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=dims)
-            var = torch.clamp(torch.mean(x * x, dim=dims) - mean * mean,
-                              min=0.0)
+            mean, sq = _global_means(
+                (torch.mean(x, dim=dims), torch.mean(x * x, dim=dims)),
+                x.numel() // x.shape[-1])
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -153,6 +166,24 @@ def set_act_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
     for mod in model.modules():
         if hasattr(mod, "act_dtype"):
             mod.act_dtype = dtype
+
+
+def _global_means(means, count: int):
+    """Per-channel means over this rank's ``count`` rows -> the means over
+    every rank's rows, in one collective that carries the gradient (the
+    counts are summed with them). A world of one returns ``means``
+    unchanged."""
+    if world_size() == 1:
+        return tuple(means)
+    n = float(count)
+    flat = global_sum(torch.cat([m.reshape(-1) * n for m in means]
+                                + [means[0].new_tensor([n])]))
+    n_tot = flat[-1].detach()
+    out, start = [], 0
+    for m in means:
+        out.append((flat[start:start + m.numel()] / n_tot).reshape(m.shape))
+        start += m.numel()
+    return tuple(out)
 
 
 def _chain_layer(conv: PLinear, bn: BN):
@@ -174,8 +205,8 @@ def _conv_bn_relu(x, conv: PLinear, bn: BN):
     k, b = conv.kernel(), conv.bias
     n_tot = x.shape[0] * x.shape[1]
     xf = x.reshape(n_tot, x.shape[2])
-    xm = torch.sum(xf, dim=0) / n_tot
-    gram = (xf.t() @ xf) / n_tot
+    xm, gram = _global_means(
+        (torch.sum(xf, dim=0) / n_tot, (xf.t() @ xf) / n_tot), n_tot)
     cov = gram - xm[:, None] * xm[None, :]
     mean_y = xm @ k + b
     var_y = torch.clamp(torch.sum(k * (cov @ k), dim=0), min=0.0)
@@ -198,7 +229,12 @@ class _LinearPoolReductions(torch.autograd.Function):
     g_min, or g_sum broadcast) + alpha + kappa c, pushed through the linear
     map analytically. The one-hot terms are gathers of x at the arg rows
     (for dW) and a scatter-add of g W^T into them (for dx): (B, C, Cin)
-    tensors, never (B, n, C)."""
+    tensors, never (B, n, C).
+
+    The statistics are this rank's: :func:`_pooled_tail` combines them over
+    the ranks outside the Function, and autograd carries each rank's share
+    of their cotangents back into it (the sharded wrapper's "kernel on the
+    local rows, statistics reduced after")."""
 
     @staticmethod
     def forward(ctx, x, w, b, need_minmax: bool, dtype=None):
@@ -269,6 +305,10 @@ def _pooled_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
     out = _LinearPoolReductions.apply(
         x.contiguous(), conv.kernel().contiguous(), conv.bias, need_minmax, d)
     mean, var = out[-2:]
+    if world_size() > 1:  # the global moments from this rank's
+        mean, sq = _global_means((mean, var + mean * mean),
+                                 x.shape[0] * x.shape[1])
+        var = sq - mean * mean
     bn.update_running_stats(mean.detach(), var.detach())
     inv = bn.weight * torch.rsqrt(var + bn.eps)
     shift = bn.bias - mean * inv

@@ -101,6 +101,38 @@ class BallDraws:
         return BallDraws(lambda kind, index, shape: src(
             kind, index, shape).to(device))
 
+    def rows(self, lo: int, hi: int, total: int, chunk: int) -> "BallDraws":
+        """The priorities of rows ``lo:hi`` of a batch of ``total`` rows
+        whose dense selection asks for ``chunk`` rows at a time (a rank's
+        share of the global batch, which selects densely: training). The
+        whole batch's blocks are asked of this source in the order a
+        one-process selection asks for them, and the rows outside
+        ``lo:hi`` are dropped, so a generator's source advances by the
+        whole batch's draw, as on every other rank."""
+        block = self.block
+        pending = []  # (first global row, rows) kept from drawn blocks
+        drawn = [0]  # global rows drawn so far
+
+        def source(kind, index, shape):
+            if kind != "rows":
+                raise ValueError("a rank's share of ball priorities serves "
+                                 "dense selection only")
+            a, b = lo + index, lo + index + shape[0]
+            end = total if b >= hi else b
+            while drawn[0] < end:
+                s = drawn[0]
+                u = block("rows", s, (min(chunk, total - s), shape[1]))
+                keep = u[max(lo, s) - s:max(min(hi, s + len(u)) - s, 0)]
+                if len(keep):
+                    pending.append((max(lo, s), keep))
+                drawn[0] = s + len(u)
+            parts = [u[max(a, s) - s:b - s] for s, u in pending
+                     if s < b and s + len(u) > a]
+            pending[:] = [(s, u) for s, u in pending if s + len(u) > b]
+            return torch.cat(parts)
+
+        return BallDraws(source)
+
 
 @dataclasses.dataclass(frozen=True)
 class SubsampleDraws:
@@ -124,6 +156,27 @@ class SubsampleDraws:
             return t.to(device)
         return dataclasses.replace(self, **{
             f.name: move(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
+
+    def rows(self, lo: int, hi: int, *, chunk: int):
+        """The draws of rows ``lo:hi`` of this batch (a rank's share of the
+        global batch's draws): the per-row log-uniforms, ids and rotations
+        sliced, the shared decimation offset kept, and the ball priorities
+        as :meth:`BallDraws.rows` gives them for a dense selection of
+        ``chunk`` rows at a time."""
+        per_row = [getattr(self, f.name) for f in dataclasses.fields(self)
+                   if f.name not in ("offset", "ball")]
+        total = next(t.shape[0] for t in per_row if t is not None)
+
+        def take(name, t):
+            if t is None or name == "offset":
+                return t
+            if isinstance(t, BallDraws):
+                return t.rows(lo, hi, total, chunk)
+            return t[lo:hi]
+
+        return dataclasses.replace(self, **{
+            f.name: take(f.name, getattr(self, f.name))
             for f in dataclasses.fields(self)})
 
 

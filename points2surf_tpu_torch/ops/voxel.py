@@ -23,6 +23,24 @@ def model_space_to_volume_space(pts_ms: torch.Tensor,
     return torch.clamp(ids, 0, vol_res - 1)
 
 
+def volume_space_to_model_space(pts_vs, vol_res: int):
+    """((v + 0.5) / res) * 2 - 1 (reference sdf.py:78-79): voxel ids to
+    their centres in model space."""
+    return ((pts_vs + 0.5) / vol_res) * 2.0 - 1.0
+
+
+def make_grid_points(grid_resolution: int) -> np.ndarray:
+    """All voxel centres of the unit-cube grid, (res^3, 3) float32: the
+    point set of reference sdf.py:9-17, in the JAX package's order (x
+    slowest)."""
+    vs = 1.0 / grid_resolution
+    lin = np.linspace(-1.0, 1.0 - vs, grid_resolution,
+                      dtype=np.float32) + vs
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    pts = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1)
+    return pts - vs * 0.5
+
+
 def voxelize(pts_ms: torch.Tensor, n_valid, vol_res: int) -> torch.Tensor:
     """Binary occupancy volume (res, res, res) of a padded cloud; rows >=
     n_valid are ignored (sdf.py:56-59)."""

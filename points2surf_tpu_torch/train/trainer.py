@@ -18,6 +18,15 @@ the fraction of the epoch done, TensorBoard scalars under the reference's
 tag names, and checkpoints in the JAX package's layout
 (``train/checkpoint.py``) every ``save_interval`` epochs plus log-spaced
 snapshots, with the optimizer state (the reference drops it).
+
+On one device, or on every rank of a ``torchrun`` launch (``parallel/``):
+every rank runs the same seeded plan and draws, takes its contiguous rows
+of each global batch and of its draws, and normalizes with the global
+batch's statistics (``models/pointnet.py``); the step averages the ranks'
+gradients of their mean losses over equal row counts (the ragged remainder
+is dropped), which is the gradient of the global batch's loss. The logged
+scalars are averaged over the ranks; rank 0 alone writes TensorBoard
+scalars, checkpoints and the run's params.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from points2surf_tpu_torch.models.weights import (
     sgd_state_to_checkpoint,
 )
 from points2surf_tpu_torch.ops.patches import PatchConfig, extract_patches
+from points2surf_tpu_torch.parallel import distributed, replicate, shard_batch
 from points2surf_tpu_torch.train import checkpoint as ckpt
 
 GREEN = "\033[92m"
@@ -116,7 +126,9 @@ class TrainStep:
     """The train, eval and fused train steps of one model and its SGD state.
 
     ``train_step`` is ``forward_loss``, ``backward`` and ``update`` in turn;
-    the gradients stay in the parameters' ``.grad`` after it.
+    the gradients stay in the parameters' ``.grad`` after it. Under a
+    process group ``backward`` averages them over the ranks (one
+    collective), each rank holding an equal share of the global batch.
     """
 
     def __init__(self, model: torch.nn.Module, outputs, *, lr: float = 0.01,
@@ -155,6 +167,15 @@ class TrainStep:
     def backward(self, losses) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         torch.stack(losses).sum().backward()
+        if distributed.world_size() > 1:
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            flat = distributed.mean_over_ranks_(
+                torch.cat([g.reshape(-1) for g in grads]))
+            start = 0
+            for g in grads:
+                g.copy_(flat[start:start + g.numel()].view_as(g))
+                start += g.numel()
 
     def update(self) -> None:
         for group in self.optimizer.param_groups:
@@ -235,7 +256,7 @@ class Trainer:
             torch.manual_seed(opt.seed)
             self.model = build_model(opt, self.pred_dim).to(self.device)
         self.fixed_radius = opt.patch_radius > 0.0
-        self.log_writer = log_writer
+        self.log_writer = log_writer if distributed.is_main_process() else None
 
         self.patch_cfg = PatchConfig(
             points_per_patch=opt.points_per_patch,
@@ -281,6 +302,7 @@ class Trainer:
             self.global_step = self.start_epoch * self.steps_per_epoch
             if self.start_epoch:
                 print(f"Continuing training from epoch {self.start_epoch}")
+        replicate(self.model)
 
     def _make_sampler(self, store):
         opt = self.opt
@@ -312,14 +334,24 @@ class Trainer:
     # -- steps -------------------------------------------------------------
 
     def _train_single(self, si: int, local_inds, gt):
-        """Fused step on one shape's queries: extraction and the step."""
+        """Fused step on one shape's queries: extraction and the step. Each
+        rank takes its rows of the queries and of the global batch's draws
+        (every rank draws the whole batch); None when the batch leaves the
+        ranks no rows."""
         pts_dev, n_valid = self.train_store.device_points(si)
         shape = self.train_store.get(si)
-        q = torch.from_numpy(shape.query_pts[local_inds]).to(self.device)
-        gt = torch.from_numpy(gt).to(self.device)
+        lo, hi = distributed.rank_rows(len(local_inds))
+        if hi == lo:
+            return None  # a ragged tail smaller than the world
         small = self.train_pipe.small_cloud(n_valid)
-        draws = self.train_pipe.draws(len(local_inds), pts_dev.shape[0],
-                                      small, n_valid=n_valid)
+        draws = self.train_pipe.draws((hi - lo) * distributed.world_size(),
+                                      pts_dev.shape[0], small,
+                                      n_valid=n_valid)
+        if distributed.world_size() > 1:
+            draws = draws.rows(lo, hi, chunk=self.patch_cfg.query_chunk)
+        q = torch.from_numpy(shape.query_pts[local_inds[lo:hi]]).to(
+            self.device)
+        gt = torch.from_numpy(gt[lo:hi]).to(self.device)
         return self.steps.train_step_fused(pts_dev, q, n_valid, gt, draws,
                                            small_cloud=small)
 
@@ -328,15 +360,18 @@ class Trainer:
     def _log(self, prefix, train, epoch, batchind, fraction_done, num_batch,
              loss_list, metrics):
         """Fetch and log one step's scalars: the losses and metrics are
-        packed into one tensor and copied to the host once."""
+        packed into one tensor, averaged over the ranks and copied to the
+        host once; rank 0 logs them."""
         opt = self.opt
         mkeys = tuple(sorted(metrics))
-        flat_np = torch.cat(
+        flat_np = distributed.mean_over_ranks_(torch.cat(
             [loss_list.reshape(-1).float()]
             + ([torch.stack([metrics[k].float() for k in mkeys])]
                if mkeys else [])
-        ).cpu().numpy()
+        )).cpu().numpy()
         n_loss = flat_np.shape[0] - len(mkeys)
+        if not distributed.is_main_process():
+            return
         loss_np = flat_np[:n_loss]
         metrics = {k: flat_np[n_loss + i] for i, k in enumerate(mkeys)}
         loss_sum = float(loss_np.sum())
@@ -374,14 +409,16 @@ class Trainer:
     def train(self):
         opt = self.opt
         model_filename = os.path.join(opt.outdir, f"{opt.name}_model.npz")
-        os.makedirs(opt.outdir, exist_ok=True)
-        ckpt.save_params_namespace(
-            os.path.join(opt.outdir, f"{opt.name}_params.json"), opt
-        )
-        with open(
-            os.path.join(opt.outdir, f"{opt.name}_description.txt"), "w"
-        ) as f:
-            print(opt.desc, file=f)
+        main = distributed.is_main_process()
+        if main:
+            os.makedirs(opt.outdir, exist_ok=True)
+            ckpt.save_params_namespace(
+                os.path.join(opt.outdir, f"{opt.name}_params.json"), opt
+            )
+            with open(
+                os.path.join(opt.outdir, f"{opt.name}_description.txt"), "w"
+            ) as f:
+                print(opt.desc, file=f)
 
         train_num_batch = self.steps_per_epoch
         test_num_batch = max(
@@ -439,10 +476,14 @@ class Trainer:
                         prof, profile_window = None, None
                 if item[0] == "single":
                     _, si, local_inds, gt = item
-                    loss_list, metrics = self._train_single(si, local_inds,
-                                                            gt)
+                    out = self._train_single(si, local_inds, gt)
                 else:
-                    loss_list, metrics = self.steps.train_step(item[1])
+                    batch = shard_batch(item[1])
+                    out = (self.steps.train_step(batch)
+                           if len(batch["imp_surf_ms"]) else None)
+                if out is None:
+                    continue  # a ragged tail smaller than the world
+                loss_list, metrics = out
                 # upload the NEXT shape's cloud while this step's work is
                 # still queued on the device (the sampler order is known)
                 if (
@@ -477,8 +518,11 @@ class Trainer:
                     if tb is None:
                         break
                     test_batchind += 1
-                    loss_t, metrics_t = self.steps.eval_step(tb)
                     test_fraction_done = (test_batchind + 1) / test_num_batch
+                    tb = shard_batch(tb)
+                    if not len(tb["imp_surf_ms"]):
+                        continue
+                    loss_t, metrics_t = self.steps.eval_step(tb)
                     pending_logs.append((
                         BLUE + "test" + ENDC, False, epoch, test_batchind,
                         test_fraction_done, train_num_batch, loss_t, metrics_t,
@@ -486,9 +530,11 @@ class Trainer:
                     flush_logs(limit=log_lag)
 
             flush_logs()  # drain deferred scalars before checkpointing
-            if epoch % opt.save_interval == 0 or epoch == opt.nepoch - 1:
+            # rank 0 writes: the parameters are the same on every rank
+            if main and (epoch % opt.save_interval == 0
+                         or epoch == opt.nepoch - 1):
                 ckpt.save_state(model_filename, self.state_dict())
-            if ckpt.is_snapshot_epoch(epoch, opt.nepoch):
+            if main and ckpt.is_snapshot_epoch(epoch, opt.nepoch):
                 ckpt.save_state(
                     os.path.join(opt.outdir, f"{opt.name}_model_{epoch}.npz"),
                     self.state_dict(),

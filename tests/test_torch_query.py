@@ -61,7 +61,12 @@ def test_port_imports_no_jax():
             "points2surf_tpu_torch.datagen.deepsdf, "
             "points2surf_tpu_torch.cli.make_dataset, "
             "points2surf_tpu_torch.evalx.baselines, "
-            "points2surf_tpu_torch.evalx.figures; "
+            "points2surf_tpu_torch.evalx.figures, "
+            "points2surf_tpu_torch.parallel, "
+            "points2surf_tpu_torch.parallel.distributed, "
+            "points2surf_tpu_torch.parallel.mesh, "
+            "points2surf_tpu_torch.cli.download, "
+            "points2surf_tpu_torch.ops.knn; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'points2surf_tpu.')) or "
             "m == 'points2surf_tpu']; print(bad); sys.exit(bool(bad))")

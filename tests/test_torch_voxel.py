@@ -33,6 +33,23 @@ def test_box_sum_int_matches_jax(rng, size):
         got, np.asarray(jv._box_sum_int(jnp.asarray(vol), size)))
 
 
+@pytest.mark.parametrize("res", [1, 3, 16, 33])
+def test_grid_helpers_match_jax(res):
+    got = tv.make_grid_points(res)
+    want = jv.make_grid_points(res)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    ids = np.stack(np.meshgrid(*[np.arange(res)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)
+    back = tv.volume_space_to_model_space(torch.from_numpy(ids), res)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jv.volume_space_to_model_space(
+            jnp.asarray(ids), res)))
+    # each voxel centre maps back to its voxel
+    np.testing.assert_array_equal(tv.model_space_to_volume_space(
+        torch.from_numpy(got), res).numpy(), ids)
+
+
 def test_voxelize_ignores_padding(rng):
     pts = (rng.rand(300, 3) * 2 - 1).astype(np.float32)
     got = tv.voxelize(torch.from_numpy(pts), 200, 16).numpy()
@@ -42,7 +59,7 @@ def test_voxelize_ignores_padding(rng):
 
 def test_splat_to_volume_with_padding_rows(rng):
     res = 16
-    q = jv.make_grid_points(res)[::7]
+    q = tv.make_grid_points(res)[::7]
     n_valid = len(q)
     # padding rows: a repeat of the first query (the sweep's padding) and
     # zeros, each carrying a value that must not reach the volume
@@ -60,7 +77,7 @@ def test_splat_to_volume_with_padding_rows(rng):
 
 def _sparse_seeds(rng, res, density=0.08, flip=0.02):
     """Sparse sphere seeds (inside +, outside -) with a few wrong signs."""
-    centers = jv.make_grid_points(res).reshape(res, res, res, 3)
+    centers = tv.make_grid_points(res).reshape(res, res, res, 3)
     d = np.linalg.norm(centers, axis=-1)
     vol = np.zeros((res, res, res), np.float32)
     seeds = rng.rand(res, res, res) < density
