@@ -56,13 +56,18 @@ the reconstruction of a 256^3 mesh:
    ``P2S_PALLAS_TAIL_PREC=default``; phases 1-8 run in fp32 mode, the
    port's default): each bf16 kernel against its plain bf16 version at
    phase 4's five chain call sites (batch 4096) and phase 6's five tails
-   (batch 1000), with times; the bf16 query at batch 4096 (queries/s, 5 + 5
-   bf16 launches per forward) and, over every grid-256 query, its sign
-   agreement and max |diff| against fp32 mode; the bf16 train step at
+   (batch 1000), with times: the fused chain (``chain_fused``, which the
+   bf16 mode runs) and the split pair (``chain_head`` + ``chain_tail``)
+   timed in turn against the fused bound; the bf16 query at batch 4096
+   (queries/s, 5 fused launches per forward and none of the split pair)
+   and, over every grid-256 query, its sign agreement and max |diff|
+   against fp32 mode; the bf16 train step at
    batch 1000 (patches/s, 5 bf16 launches per step) and one step at batch
    64 on the card against the CPU, both in bf16 mode; phase 8's trained
    checkpoint reconstructed at grid 128 in both modes (sign agreement,
-   faces, Chamfer and Hausdorff distance between the two meshes);
+   faces, Chamfer and Hausdorff distance between the two meshes); the
+   fused chain against its plain version at every call site the bf16
+   query and reconstruction reached;
 10. the options of the landed slices: each kernel against its plain
    version at large_kNN's and small_kNN's patch sizes (n = 1200, 75);
    ball mode (r = 0.05 and 0.2) on the bench model: the query slice on the
@@ -153,7 +158,8 @@ MESH_GRID = 256
 MESH_SIGMA = 5
 MESH_CERTAINTY = 13
 MESH_PASSES = 2
-KERNEL_SOURCES = ("chain_head", "chain_pool", "pooled_tail", "mlp_maxpool")
+KERNEL_SOURCES = ("chain_head", "chain_pool", "chain_fused", "pooled_tail",
+                  "mlp_maxpool")
 # least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
 # peak, bf16-operand work at the 989 TFLOP/s dense bf16 peak, and HBM3 at
 # 3.35 TB/s (H100 SXM data sheet)
@@ -295,6 +301,7 @@ def phase_device(torch):
         marching_path, _ = marching.result()
     cp._head_library()
     cp._tail_library()
+    cp._fused_library()
     pt._library()
     mm._library()
     marching_native._library()
@@ -353,6 +360,15 @@ def _tail_cost(b, n, cout=NET, h2_bytes=4):
     flop = 2.0 * b * n * 128 * cout
     nbytes = (h2_bytes * b * n * 128
               + 4.0 * (128 * cout + 2 * cout + b * cout))
+    return flop, nbytes
+
+
+def _fused_cost(b, n, cin, cout=NET):
+    """(FLOP, bytes) of chain_fused: the three layers of b * n points and the
+    pool, x read once in fp32 (Cin unpadded), the weights and affines, out."""
+    flop = 2.0 * b * n * (cin * 64 + 64 * 128 + 128 * cout)
+    nbytes = 4.0 * (b * n * cin + cin * 64 + 64 * 128 + 128 * cout
+                    + 2 * (64 + 128 + cout) + b * cout)
     return flop, nbytes
 
 
@@ -1619,14 +1635,61 @@ def _zero_launches(*fns) -> None:
     for f in fns:
         f.launches = 0
         f.launches_bf16 = 0
+        if hasattr(f, "launches_fused_bf16"):
+            f.launches_fused_bf16 = 0
+
+
+def _chain_bf16_close(got, want):
+    """(max abs err, max|err| / max|ref|, elements outside rtol / atol
+    BF16_CHAIN_TOL x max|ref|) of a bf16-mode chain against its plain
+    version."""
+    check(got.shape == want.shape, f"bf16 chain: shape {tuple(got.shape)} "
+                                   f"!= {tuple(want.shape)}")
+    diff = (got.double() - want.double()).abs()
+    scale = float(want.abs().max())
+    bad = int((diff > BF16_CHAIN_TOL * (scale + want.abs())).sum())
+    return float(diff.max()), float(diff.max()) / scale, bad
+
+
+def _fused_sites_check(torch, rec, tag):
+    """chain_fused (chain_pool in the bf16 mode) against its plain version
+    at the call sites ``rec`` recorded (the plain version in row chunks),
+    reruns bit-identical. Returns the max abs error."""
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_pool, chain_pool_reference)
+
+    bf = dict(bf16_operands=True)
+    worst = 0.0
+    for (shape, sym, relu_last, cout), (x, layers) in sorted(
+            rec.chain.items()):
+        kw = dict(sym_op=sym, relu_last=relu_last, **bf)
+        got = chain_pool(x, layers, **kw)
+        again = chain_pool(x, layers, **kw)
+        want = _chunked(torch, lambda v: chain_pool_reference(
+            v, layers, **kw), x, 128)
+        torch.cuda.synchronize()
+        e, rel, bad = _chain_bf16_close(got, want)
+        same = torch.equal(got, again)
+        print(f"[{tag}] call site B={shape[0]} n={shape[1]} cin={shape[2]} "
+              f"-> {cout} {sym}: chain_fused max_abs_err {e:.3e}, "
+              f"max|err|/max|ref| {rel:.3e}, {bad} outside rtol / atol 2^-8 "
+              f"x max|ref|; rerun bit-identical: {same}")
+        check(bad == 0 and same, f"chain_fused disagrees with its plain "
+                                 f"version at {shape} {sym}")
+        worst = max(worst, e)
+        del got, again, want
+    return worst
 
 
 def phase_bf16_kernels(torch, device):
-    """Phase 9, kernels: chain_head, chain_pool (layer 3) and pooled_tail in
-    the bf16 mode against their plain bf16 versions at the query path's
-    chain call sites (batch BATCH) and the train step's tails (batch
-    TRAIN_BATCH), with times. Layer 3 takes the kernel's own bf16 h2, so it
-    and its plain version see the same operands."""
+    """Phase 9, kernels: the fused chain (chain_fused, what chain_pool runs
+    in the bf16 mode), the split pair (chain_head, chain_tail) and
+    pooled_tail in the bf16 mode against their plain bf16 versions at the
+    query path's chain call sites (batch BATCH) and the train step's tails
+    (batch TRAIN_BATCH), with times; the fused chain and the split pair
+    timed in turn, each against the fused bound. Layer 3 takes the split
+    head's own bf16 h2, so it and its plain version see the same
+    operands."""
     from points2surf_tpu_torch.device import round_bf16
     from points2surf_tpu_torch.ops.kernels.chain_pool import (
         chain_head, chain_head_bf16_straddles, chain_head_reference,
@@ -1637,7 +1700,7 @@ def phase_bf16_kernels(torch, device):
     gen = torch.Generator().manual_seed(SEED + 9)
     dgen = torch.Generator(device=device).manual_seed(SEED + 10)
     err = {"chain_head": 0.0, "chain_pool": 0.0, "chain": 0.0,
-           "pooled_tail": 0.0}
+           "chain_fused": 0.0, "pooled_tail": 0.0}
     res = {"err": err, "straddles": 0, "h2_elements": 0}
     times = {}
     bf = dict(bf16_operands=True)
@@ -1669,29 +1732,46 @@ def phase_bf16_kernels(torch, device):
             e_t, bad_t = _close(got, _chunked(torch, lambda v: (
                 chain_tail_reference(v, layers[2], sym_op=sym, **bf)), h2,
                 128), "chain_pool bf16 layer 3")
+            # the fused kernel, through chain_pool as the paths call it
             got = chain_pool(x, layers, sym_op=sym, **bf)
+            again = chain_pool(x, layers, sym_op=sym, **bf)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()),
                   f"chain_pool bf16 {n}x{cin} {sym}: non-finite output")
+            check(torch.equal(got, again), f"chain_fused {n}x{cin} {sym}: a "
+                                           f"rerun differs")
             want = _chunked(torch, lambda v: chain_pool_reference(
                 v, layers, sym_op=sym, **bf), x, 128)
-            diff = (got.double() - want.double()).abs()
-            scale = float(want.abs().max())
-            e_c = float(diff.max()) / scale
-            bad_c = int((diff > BF16_CHAIN_TOL * (scale + want.abs()))
-                        .sum())
+            e_f, e_c, bad_c = _chain_bf16_close(got, want)
+            staged = chain_tail(h2, layers[2], sym_op=sym, **bf)
+            _, e_s, bad_s = _chain_bf16_close(staged, want)
             err["chain_pool"] = max(err["chain_pool"], e_t)
-            err["chain"] = max(err["chain"], e_c)
+            err["chain"] = max(err["chain"], e_c, e_s)
+            err["chain_fused"] = max(err["chain_fused"], e_f)
             print(f"[bf16 kernel] chain_pool B={BATCH} n={n} cin={cin} "
                   f"{sym}: layer 3 on the same bf16 h2 vs plain max_abs_err "
                   f"{e_t:.3e}, {bad_t} outside rtol 1e-4 / atol "
-                  f"1e-4*max|ref|; whole chain vs plain max|err|/max|ref| "
-                  f"{e_c:.3e}, {bad_c} outside rtol / atol 2^-8 x max|ref|")
-            check(bad_t == 0 and bad_c == 0, f"chain_pool bf16 disagrees "
-                                             f"with its plain version: "
-                                             f"n={n} cin={cin} {sym}")
+                  f"1e-4*max|ref|; whole chain vs plain max|err|/max|ref|: "
+                  f"chain_fused {e_c:.3e} (max_abs_err {e_f:.3e}), {bad_c} "
+                  f"outside rtol / atol 2^-8 x max|ref|, rerun "
+                  f"bit-identical; split pair {e_s:.3e}, {bad_s} outside")
+            check(bad_t == 0 and bad_c == 0 and bad_s == 0,
+                  f"the bf16 chain disagrees with its plain version: n={n} "
+                  f"cin={cin} {sym}")
+        # max pool, as the query path runs it: the fused kernel and the
+        # split pair in turn (fused, split, split, fused), the plain chain
+        # in row chunks
+        fused = lambda: chain_pool(x, layers, **bf)  # noqa: E731
+        split = lambda: chain_tail(  # noqa: E731
+            chain_head(x, layers[:2], **bf), layers[2], **bf)
+        f0, s0, s1, f1 = (_events_ms(torch, fn, 5)
+                          for fn in (fused, split, split, fused))
         t = {
-            "chain": _events_ms(torch, lambda: chain_pool(x, layers, **bf), 5),
+            "chain": (f0 + f1) / 2,
+            "split": (s0 + s1) / 2,
+            "chain_plain": _events_ms(torch, lambda: _chunked(
+                torch, lambda v: chain_pool_reference(v, layers, **bf), x,
+                128), 2),
             "head": _events_ms(torch, lambda: chain_head(x, layers[:2], **bf),
                                5),
             "tail": _events_ms(torch, lambda: chain_tail(h2, layers[2], **bf),
@@ -1703,10 +1783,12 @@ def phase_bf16_kernels(torch, device):
                 128), 2),
         }
         times[(cin, n)] = t
-        print(f"[bf16 kernel] B={BATCH} cin={cin} n={n} max: chain "
-              f"{t['chain']:.4f} ms; chain_head {t['head']:.4f} ms vs plain "
-              f"{t['head_plain']:.4f}; layer 3 {t['tail']:.4f} ms vs plain "
-              f"{t['tail_plain']:.4f}")
+        print(f"[bf16 kernel] B={BATCH} cin={cin} n={n} max: chain_fused "
+              f"{t['chain']:.4f} ms ({f0:.4f}, {f1:.4f}), split pair "
+              f"{t['split']:.4f} ms ({s0:.4f}, {s1:.4f}), plain chain "
+              f"{t['chain_plain']:.4f} ms; chain_head {t['head']:.4f} ms vs "
+              f"plain {t['head_plain']:.4f}; layer 3 {t['tail']:.4f} ms vs "
+              f"plain {t['tail_plain']:.4f}")
         del x, h2
     tot = {k: sum(cnt * times[(cin, n)][k] for cin, n, cnt in CHAIN_SITES)
            for k in times[CHAIN_SITES[0][:2]]}
@@ -1714,15 +1796,23 @@ def phase_bf16_kernels(torch, device):
                             for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
     res["tail_cost"] = [sum(cnt * _tail_cost(BATCH, n, h2_bytes=2)[i]
                             for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
+    res["fused_cost"] = [sum(cnt * _fused_cost(BATCH, n, cin)[i]
+                             for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
     res.update(tot)
     b_head, _ = _bound(*res["head_cost"], PEAK_FLOPS_BF16)
     b_tail, _ = _bound(*res["tail_cost"], PEAK_FLOPS_BF16)
+    b_fused, by = _bound(*res["fused_cost"], PEAK_FLOPS_BF16)
     print(f"[bf16 kernel] five chains of one B={BATCH} forward (max): "
-          f"{tot['chain']:.4f} ms; chain_head {tot['head']:.4f} ms (bound "
-          f"{b_head:.3f}), layer 3 {tot['tail']:.4f} ms (bound {b_tail:.3f}, "
-          f"{b_tail / tot['tail']:.1%}); plain {tot['head_plain']:.4f} + "
-          f"{tot['tail_plain']:.4f} ms; h2 straddles {res['straddles']} of "
-          f"{res['h2_elements']}")
+          f"chain_fused {tot['chain']:.4f} ms, "
+          f"{b_fused / tot['chain']:.1%} of the {b_fused:.3f} ms bound (by "
+          f"{by}); split pair {tot['split']:.4f} ms, "
+          f"{b_fused / tot['split']:.1%} of it (fused "
+          f"{tot['split'] / tot['chain']:.2f}x faster); plain chain "
+          f"{tot['chain_plain']:.4f} ms; chain_head {tot['head']:.4f} ms "
+          f"(bound {b_head:.3f}), layer 3 {tot['tail']:.4f} ms (bound "
+          f"{b_tail:.3f}, {b_tail / tot['tail']:.1%}); plain "
+          f"{tot['head_plain']:.4f} + {tot['tail_plain']:.4f} ms; h2 "
+          f"straddles {res['straddles']} of {res['h2_elements']}")
 
     gen = torch.Generator().manual_seed(SEED + 12)
     tails = {}
@@ -1802,10 +1892,13 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
                      drv, tmp):
     """Phase 9, paths: the bf16 query and train step at full width, the
     train step against the CPU in bf16 mode, and phase 8's checkpoint
-    reconstructed in both modes. Returns the bf16 launch counts by path."""
+    reconstructed in both modes; chain_fused against its plain version at
+    every chain call site the bf16 query and reconstruction reached. Returns
+    the bf16 launch counts by path and the call sites' max abs error."""
     from points2surf_tpu_torch.evalx import metrics
     from points2surf_tpu_torch.infer import evaluator, meshing
     from points2surf_tpu_torch.infer.query import make_sdf_query_fn
+    from points2surf_tpu_torch.models import pointnet as pn
     from points2surf_tpu_torch.models.pointnet import _STNTrunk
     from points2surf_tpu_torch.ops.kernels.chain_pool import (
         chain_head, chain_pool)
@@ -1819,7 +1912,9 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     launched = {}
 
     def counts():
-        return {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+        c = {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+        c["chain_fused"] = chain_pool.launches_fused_bf16
+        return c
     pts_t = torch.from_numpy(pts_pad).to(device)
     fn = make_sdf_query_fn(model, OUTPUTS, cfg, fixed_radius=False)
     q_all = torch.from_numpy(queries).to(device)
@@ -1828,7 +1923,7 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     # the query at batch BATCH in bf16 mode, then the whole grid-256 sweep
     torch.cuda.synchronize()
     _zero_launches(*kernels)
-    with _Bf16Mode():
+    with _Bf16Mode(), _Recorder(pn) as rec_query:
         for i in range(BF16_WARMUP):
             fn(pts_t, q_all[i * BATCH:(i + 1) * BATCH], n, gen)
         torch.cuda.synchronize()
@@ -1856,13 +1951,15 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
           f"{len(queries)} grid-256 queries: bf16 sweep {t_16:.3f} s, fp32 "
           f"sweep {t_32:.3f} s ({n_sweep} batches each, the same draws): "
           f"same sign {agree:.6%}, max |diff| {delta:.3e}")
-    print(f"[bf16 query] launches (fp32, bf16) over {n_batches} bf16 "
-          f"batches: {c} (expected (0, {5 * n_batches}) for each chain "
-          f"kernel)")
+    print(f"[bf16 query] launches over {n_batches} bf16 batches: {c} "
+          f"(expected chain_fused {5 * n_batches}, the split pair (fp32, "
+          f"bf16) (0, 0))")
     check(bool(np.isfinite(d16).all()), "bf16 sweep: non-finite distances")
+    check(c["chain_fused"] == 5 * n_batches,
+          f"chain_fused: not 5 launches per bf16 forward: {c}")
     for name in ("chain_head", "chain_pool"):
-        check(c[name] == (0, 5 * n_batches),
-              f"{name}: not 5 bf16 launches per bf16 forward: {c[name]}")
+        check(c[name] == (0, 0), f"{name}: launched in a bf16 forward: "
+                                 f"{c[name]}")
 
     # the train step at batch TRAIN_BATCH in bf16 mode
     steps = make_train_step(copy.deepcopy(model).to(device), OUTPUTS,
@@ -1946,7 +2043,7 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     _zero_launches(*kernels)
     for mode in ("bf16", "fp32"):
         if mode == "bf16":
-            with _Bf16Mode():
+            with _Bf16Mode(), _Recorder(pn) as rec_rec:
                 dists[mode], n_rec = _sweep(torch, np, fn_rec, rec_pts,
                                             drv["test_n"], rec_q, SEED + 14,
                                             device)
@@ -1966,9 +2063,10 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
               f"the {mode} mesh is empty, not finite or not watertight")
         meshes[mode] = (np.asarray(verts), faces)
     c = launched["reconstruction"]
-    check(c["chain_head"] == (0, 5 * n_rec) and c["chain_pool"] == (0, 5 * n_rec),
-          f"reconstruction in bf16 mode: launches {c}, expected (0, "
-          f"{5 * n_rec}) each")
+    check(c["chain_fused"] == 5 * n_rec and c["chain_head"] == (0, 0)
+          and c["chain_pool"] == (0, 0),
+          f"reconstruction in bf16 mode: launches {c}, expected chain_fused "
+          f"{5 * n_rec} and no split launch")
     agree, delta = _mode_agreement(np, dists["bf16"], dists["fp32"])
     samples = {k: metrics.sample_mesh_surface(v, f, 10000)
                for k, (v, f) in meshes.items()}
@@ -1981,7 +2079,11 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
           f"{len(meshes['fp32'][1])}, both watertight; between the two "
           f"meshes (10,000 samples each) Chamfer {chamfer:.6f}, Hausdorff "
           f"{hd[2]:.6f} ({hd[0]:.6f} / {hd[1]:.6f})")
-    return launched
+    # chain_fused at the call sites the two bf16 paths reached
+    err = max(_fused_sites_check(torch, rec_query, "bf16 query"),
+              _fused_sites_check(torch, rec_rec, "bf16 reconstruction"))
+    del rec_query, rec_rec
+    return launched, err
 
 
 
@@ -3469,11 +3571,12 @@ def main() -> int:
 
         bf16_runs = {f.__name__: f.launches_bf16
                      for f in (chain_head, chain_pool, pooled_tail_reductions)}
+        bf16_runs["chain_fused"] = chain_pool.launches_fused_bf16
         check(not any(bf16_runs.values()),
               f"a bf16 kernel launched in phases 1-8: {bf16_runs}")
         bf = phase_bf16_kernels(torch, device)
-        bfl = phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n,
-                               queries, drv, tmp)
+        bfl, fused_site_err = phase_bf16_paths(
+            torch, np, device, cfg, model, pts_pad, n, queries, drv, tmp)
         print(f"[bf16] phase 9 took {time.perf_counter() - t9:.1f} s")
         t10 = time.perf_counter()
         opt_err = phase_option_kernels(torch, device)
@@ -3498,7 +3601,11 @@ def main() -> int:
     # chain_head and chain_pool: the five call sites of one query forward at
     # batch BATCH; pooled_tail: the five conv3 tails of one train step;
     # mlp_maxpool: MLP_SHAPES[1]; the *_bf16 entries the same in the bf16
-    # mode (phase 9), bound at the bf16 peak. No single PyTorch call
+    # mode (phase 9), bound at the bf16 peak. The bf16 chain runs as
+    # chain_fused on every path, so the split pair (chain_head_bf16,
+    # chain_pool_bf16: checked and timed beside it) launches 0 times there;
+    # chain_fused_bf16's max_abs_err takes the bf16 query's and
+    # reconstruction's call sites too. No single PyTorch call
     # computes any of these functions, so library_ms is null. launches sums
     # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
     # the bf16 query, train step and reconstruction of phase 9; phase 10's
@@ -3538,6 +3645,9 @@ def main() -> int:
         "chain_pool_bf16": {
             "query": bfl["query"]["chain_pool"][1],
             "reconstruction": bfl["reconstruction"]["chain_pool"][1]},
+        "chain_fused_bf16": {
+            "query": bfl["query"]["chain_fused"],
+            "reconstruction": bfl["reconstruction"]["chain_fused"]},
         "pooled_tail_bf16": {
             "train": bfl["train"]["pooled_tail_reductions"][1]},
     }
@@ -3566,6 +3676,9 @@ def main() -> int:
         ("chain_pool_bf16", "chain_pool.cu", "chain_kernel.py:187",
          bf["err"]["chain_pool"], bf["tail"], bf["tail_plain"],
          *bf["tail_cost"]),
+        ("chain_fused_bf16", "chain_fused.cu", "chain_kernel.py:187",
+         max(bf["err"]["chain_fused"], fused_site_err), bf["chain"],
+         bf["chain_plain"], *bf["fused_cost"]),
         ("pooled_tail_bf16", "pooled_tail.cu", "train_tail.py:138",
          bf["err"]["pooled_tail"], bf["tail_ms"], bf["tail_plain_ms"],
          *bf["pooled_tail_cost"]),

@@ -1,5 +1,6 @@
 """Fused eval chain + pool: wrappers of the CUDA kernels ``csrc/chain_head.cu``
-(layers 1-2) and ``csrc/chain_pool.cu`` (layer 3 and the pool).
+(layers 1-2), ``csrc/chain_pool.cu`` (layer 3 and the pool) and
+``csrc/chain_fused.cu`` (the whole chain in the bf16-operand class).
 
 Counterpart of ``points2surf_tpu/ops/pallas/chain_kernel.py`` (``chain_pool``,
 ``_chain_literal``, ``fold_conv_bn``). Computes
@@ -7,31 +8,35 @@ Counterpart of ``points2surf_tpu/ops/pallas/chain_kernel.py`` (``chain_pool``,
     pool_n(L3(relu(L2(relu(L1(x))))))     L_i(h) = (h @ W_i) * a_i + c_i
 
 (relu after L3 only with ``relu_last``), pooled by max or sum over the point
-axis. On the card it runs in two stages: :func:`chain_head` writes
-h2 = relu(L2(relu(L1(x)))) (B, n, 128) to device memory (SIMT), and
-:func:`chain_tail` runs L3, its affine and the pool on the tensor cores
-(``wgmma`` fed by TMA). A CPU tensor takes the plain PyTorch version; a CUDA
-tensor launches the kernels, built from the repository's sources with
-``nvcc`` at their first use, or raises. The one-layer encoder tail is
-``mlp_maxpool.py``.
+axis. A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
+the kernels, built from the repository's sources with ``nvcc`` at their first
+use, or raises. The one-layer encoder tail is ``mlp_maxpool.py``.
 
 Two numerics classes, as in the JAX kernel; ``bf16_operands=None`` reads
 ``P2S_EVAL_CHAIN_PREC`` at call time (``device.bf16_operands``):
 
-* unset or ``highest``: fp32 operands (3xTF32 for layer 3), h2 float32;
+* unset or ``highest``: fp32 operands (3xTF32 for layer 3). On the card the
+  chain runs in two stages: :func:`chain_head` writes h2 =
+  relu(L2(relu(L1(x)))) (B, n, 128) to device memory (SIMT), and
+  :func:`chain_tail` runs L3, its affine and the pool on the tensor cores
+  (``wgmma`` fed by TMA);
 * ``default``: every operand of every product (x, h1, h2 and each W_i) is
   rounded to bf16 (nearest even), products accumulate in fp32, the affines,
-  relus and pools stay fp32; h2 is stored as bf16 (bf16 ``wgmma`` for
-  layer 3).
+  relus and pools stay fp32. On the card :func:`chain_fused` runs all three
+  layers and the pool in one kernel on bf16 ``wgmma``, h1 and h2 in
+  registers. :func:`chain_head` and :func:`chain_tail` keep their bf16 mode
+  (h2 stored as bf16) as public stages.
 
 Unset means fp32 here; in the JAX package it means bf16. Launches count in
-``chain_head.launches`` / ``chain_pool.launches`` (fp32) and their
-``launches_bf16``.
+``chain_head.launches`` / ``chain_pool.launches`` (fp32), their
+``launches_bf16`` (the stages in bf16) and ``chain_pool.launches_fused_bf16``
+(the fused kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +50,57 @@ KERNEL_C1 = 64
 KERNEL_C2 = 128
 KERNEL_CIN_MAX = 64
 PREC_ENV = "P2S_EVAL_CHAIN_PREC"
+
+# csrc/chain_fused.cu's launch plan: 64-point tiles (one warpgroup's wgmma
+# rows), slices of 512 columns of W3 resident per block, two consumer
+# warpgroups (workers) per block, one block per SM
+FUSED_TILE = 64
+FUSED_SLICE = 512
+FUSED_WORKERS_PER_BLOCK = 2
+FUSED_SMEM_LIMIT = 232448  # bytes a block may have on sm_90
+
+
+def fused_smem_bytes() -> int:
+    """Shared memory of a chain_fused.cu block, by its plan (the kernel
+    refuses a launch whose plan differs): the W3^T slice, W2^T and W1^T in
+    128-byte bf16 rows, two warpgroups' 3-stage x rings of 64-point tiles,
+    their four warps' pool partials, the packed affines, 13 mbarriers, and
+    1,024 bytes to align the swizzled tiles."""
+    row = 128
+    w = (2 * FUSED_SLICE + KERNEL_C2 + KERNEL_C1) * row
+    rings = FUSED_WORKERS_PER_BLOCK * 3 * FUSED_TILE * row
+    red = FUSED_WORKERS_PER_BLOCK * 4 * FUSED_SLICE * 4
+    affines = (KERNEL_C1 + KERNEL_C2 + FUSED_SLICE) // 2 * 16
+    bars = (2 * FUSED_WORKERS_PER_BLOCK * 3 + 1) * 8
+    return w + rings + red + affines + bars + 1024
+
+
+def fused_launch_plan(batch: int, n: int, cout: int, sym_op: str,
+                      sms: int) -> dict:
+    """Grid and point split of :func:`chain_fused` on a card of ``sms`` SMs.
+
+    Each block keeps one 512-column slice of W3 and holds two workers; a
+    worker takes items (batch row, range of 64-point tiles) in a static
+    order. Max splits a row's tiles over workers when the batch is at most
+    half the workers (partials meet in an atomic max); sum never splits.
+    Returns slices, tiles, splits, per_split (tiles per split), items (per
+    slice), blocks and smem_bytes.
+    """
+    slices = -(-cout // FUSED_SLICE)
+    tiles = -(-n // FUSED_TILE)
+    per_slice = max(1, sms // slices)
+    workers = per_slice * FUSED_WORKERS_PER_BLOCK
+    # as many splits as leave no worker with more items than another
+    splits = max(1, min(tiles, workers // batch)) if sym_op == "max" else 1
+    per_split = -(-tiles // splits)
+    splits = -(-tiles // per_split)
+    items = batch * splits
+    # worker w of a slice is warpgroup w // blocks of block w % blocks: the
+    # first warpgroups of all blocks take items before the second ones do
+    blocks = slices * min(per_slice, items)
+    return {"slices": slices, "tiles": tiles, "splits": splits,
+            "per_split": per_split, "items": items, "blocks": blocks,
+            "smem_bytes": fused_smem_bytes()}
 
 
 def chain_pool_reference(x: torch.Tensor, layers, *, sym_op: str = "max",
@@ -241,6 +297,52 @@ def chain_tail(h: torch.Tensor, layer, *, sym_op: str = "max",
     return buf[wt_floats:].view(b, cout)
 
 
+def chain_fused(x: torch.Tensor, layers, *, sym_op: str = "max",
+                relu_last: bool = False) -> torch.Tensor:
+    """The whole chain and the pool in the bf16-operand class, one kernel.
+
+    x: (B, n, Cin) float32, Cin <= 64; layers: three (W, a, c) triples of
+    widths 64, 128 and Cout, a multiple of 128. Returns (B, Cout) float32:
+    ``chain_pool_reference(..., bf16_operands=True)``'s function, on the card
+    by ``csrc/chain_fused.cu`` (h1 and h2 stay in registers), on the CPU by
+    that plain version. Anything else raises, on either device, before a
+    launch. A launch counts in ``chain_pool.launches_fused_bf16``.
+    """
+    if sym_op not in ("max", "sum"):
+        raise ValueError(f"unsupported sym_op: {sym_op}")
+    _check(x, layers, 3)
+    (w1, a1, c1), (w2, a2, c2), (w3, a3, c3) = layers
+    b, n, cin = x.shape
+    cout = w3.shape[1]
+    if (cin > KERNEL_CIN_MAX or w1.shape[1] != KERNEL_C1
+            or w2.shape[1] != KERNEL_C2 or cout % 128):
+        raise ValueError(
+            f"chain_fused takes Cin <= {KERNEL_CIN_MAX}, widths {KERNEL_C1}/"
+            f"{KERNEL_C2} and Cout a multiple of 128, got {cin}/"
+            f"{w1.shape[1]}/{w2.shape[1]}/{cout}")
+    if not _on_card(x, "chain_fused"):
+        return chain_pool_reference(x, layers, sym_op=sym_op,
+                                    relu_last=relu_last, bf16_operands=True)
+    dev = x.device.index
+    plan = fused_launch_plan(b, n, cout, sym_op, _sm_count(dev))
+    # One allocation: the bf16 W1^T (64 x 64), W2^T (128 x 64) and W3^T
+    # (Cout x 128), half a float each, then out.
+    wt_floats = (KERNEL_C1 * KERNEL_CIN_MAX + KERNEL_C2 * KERNEL_C1
+                 + cout * KERNEL_C2) // 2
+    buf = torch.empty(wt_floats + b * cout, device=x.device,
+                      dtype=torch.float32)
+    rc = _fused_library().p2s_chain_fused(
+        dev, x.data_ptr(), b, n, cin, w1.data_ptr(), a1.data_ptr(),
+        c1.data_ptr(), w2.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+        w3.data_ptr(), a3.data_ptr(), c3.data_ptr(), cout,
+        int(sym_op == "max"), int(relu_last), plan["blocks"], plan["splits"],
+        plan["per_split"], plan["smem_bytes"], buf.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev))
+    check_launch("chain_fused", rc)
+    chain_pool.launches_fused_bf16 += 1
+    return buf[wt_floats:].view(b, cout)
+
+
 def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
                relu_last: bool = False,
                bf16_operands: bool | None = None) -> torch.Tensor:
@@ -251,7 +353,8 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
     ``bf16_operands``: True rounds every product's operands to bf16, False
     keeps fp32-class products, None reads ``P2S_EVAL_CHAIN_PREC`` (unset:
     fp32). On CUDA the kernels take Cin <= 64 and the 64 -> 128 widths of
-    the model's trunks; h2 (B, n, 128) is their scratch.
+    the model's trunks: in fp32, h2 (B, n, 128) is the two stages' scratch;
+    in bf16, :func:`chain_fused` runs the chain (Cout a multiple of 128).
     """
     if sym_op not in ("max", "sum"):
         raise ValueError(f"unsupported sym_op: {sym_op}")
@@ -260,16 +363,24 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
     if not _on_card(x, "chain_pool"):
         return chain_pool_reference(x, layers, sym_op=sym_op,
                                     relu_last=relu_last, bf16_operands=bf16)
-    return chain_tail(chain_head(x, layers[:2], bf16_operands=bf16),
+    if bf16:
+        return chain_fused(x, layers, sym_op=sym_op, relu_last=relu_last)
+    return chain_tail(chain_head(x, layers[:2], bf16_operands=False),
                       layers[2], sym_op=sym_op, relu_last=relu_last,
-                      bf16_operands=bf16)
+                      bf16_operands=False)
 
 
 chain_head.launches = 0
 chain_head.launches_bf16 = 0
-# launches of the layer-3 kernel, by chain_tail
+# launches of the layer-3 kernel, by chain_tail, and of the fused kernel
 chain_pool.launches = 0
 chain_pool.launches_bf16 = 0
+chain_pool.launches_fused_bf16 = 0
+
+
+@functools.cache
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 _HEAD_ENTRY_POINTS = (
@@ -280,6 +391,10 @@ _TAIL_ENTRY_POINTS = (
     ("p2s_chain_pool", (CI, VP, CI, CI, CI, VP, VP, VP, CI, CI, CI, CI, VP,
                         VP)),
 )
+_FUSED_ENTRY_POINTS = (
+    ("p2s_chain_fused", (CI, VP, CI, CI, CI, VP, VP, VP, VP, VP, VP, VP, VP,
+                         VP, CI, CI, CI, CI, CI, CI, CI, VP, VP)),
+)
 
 
 def _head_library():
@@ -288,3 +403,7 @@ def _head_library():
 
 def _tail_library():
     return load_library("chain_pool", _TAIL_ENTRY_POINTS)
+
+
+def _fused_library():
+    return load_library("chain_fused", _FUSED_ENTRY_POINTS)

@@ -9,8 +9,10 @@ runs ``chain_pool`` (max pool) at the query forward's five call sites at
 batch 4096, ``mlp_maxpool`` at four encoder-tail shapes and
 ``pooled_tail`` at the train step's three conv3-tail shapes at batch 1000
 on seeded inputs, ``chain_pool_bf16`` and ``pooled_tail_bf16`` the same in
-the bf16-operand mode (``--kernels`` picks some of the five; a checkout
-older than the bf16 mode has only the other three), prints each call's
+the bf16-operand mode (``chain_pool_bf16`` runs ``chain_fused`` in a
+checkout that has it, the split pair in an older one; ``--kernels`` picks
+some of the five; a checkout older than the bf16 mode has only the other
+three), prints each call's
 mean device time (CUDA events) and saves the outputs. With ``--compare``
 it also prints, per case, whether the outputs are bit-identical to the
 other file's and their max abs difference. Run the two checkouts in turns
