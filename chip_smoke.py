@@ -159,7 +159,7 @@ MESH_SIGMA = 5
 MESH_CERTAINTY = 13
 MESH_PASSES = 2
 KERNEL_SOURCES = ("chain_head", "chain_pool", "chain_fused", "pooled_tail",
-                  "mlp_maxpool")
+                  "pooled_tail_bf16", "mlp_maxpool")
 # least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
 # peak, bf16-operand work at the 989 TFLOP/s dense bf16 peak, and HBM3 at
 # 3.35 TB/s (H100 SXM data sheet)
@@ -303,6 +303,7 @@ def phase_device(torch):
     cp._tail_library()
     cp._fused_library()
     pt._library()
+    pt._bf16_library()
     mm._library()
     marching_native._library()
     print(f"[device] {len(built)} kernel sources built in parallel + loaded "
@@ -311,8 +312,13 @@ def phase_device(torch):
     for name, (path, log) in zip(KERNEL_SOURCES, built):
         print(f"[device] {name} -> {os.path.relpath(path, ROOT)}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem", "C7511",
+                                       "C7514")):
                 print(f"[device] ptxas {name}: {line.strip()}")
+        # ptxas serialized the wgmma (a performance loss, not a fault)
+        serial = "C7511" in log or "C7514" in log
+        print(f"[device] {name}: wgmma serialized by ptxas (C7511/C7514): "
+              f"{'yes' if serial else 'no'}")
     return card
 
 
@@ -1681,16 +1687,53 @@ def _fused_sites_check(torch, rec, tag):
     return worst
 
 
+def _bf16_tail_check(torch, x, w, bias, what, first=None):
+    """pooled_tail in the bf16 mode against its plain version on x, w,
+    bias: run twice (bit-identical), the four values within rtol 1e-4 /
+    atol 1e-4 * max|ref|, the value at each arg index against the pool in
+    the kernel's numerics (the bf16 product), and with ``first`` (rows from
+    ``first`` on repeat earlier ones) every arg below it. Returns (max abs
+    err, elements outside)."""
+    from points2surf_tpu_torch.device import round_bf16
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions, pooled_tail_reductions_reference)
+
+    bf = dict(bf16_operands=True)
+    got = pooled_tail_reductions(x, w, bias, **bf)
+    again = pooled_tail_reductions(x, w, bias, **bf)
+    want = pooled_tail_reductions_reference(x, w, bias, **bf)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        check(torch.equal(g, a), f"{what} {tuple(x.shape)}: a rerun differs")
+    del again
+    bad, e_p = 0, 0.0
+    for g, r in zip(got, want):
+        if g.dtype != torch.int32:
+            e, nb = _close(g, r, what)
+            e_p, bad = max(e_p, e), bad + nb
+    del want
+    c = torch.matmul(round_bf16(x), round_bf16(w)) + bias
+    for v, a in ((got[0], got[1]), (got[2], got[3])):
+        check(bool(((a >= 0) & (a < x.shape[1])).all()),
+              f"{what}: an arg index out of range")
+        e, nb = _close(torch.gather(c, 1, a.long()[:, None, :])[:, 0], v,
+                       f"{what} value at arg")
+        e_p, bad = max(e_p, e), bad + nb
+        check(first is None or bool((a < first).all()),
+              f"{what}: a tie did not keep the first index")
+    return e_p, bad
+
+
 def phase_bf16_kernels(torch, device):
     """Phase 9, kernels: the fused chain (chain_fused, what chain_pool runs
     in the bf16 mode), the split pair (chain_head, chain_tail) and
-    pooled_tail in the bf16 mode against their plain bf16 versions at the
-    query path's chain call sites (batch BATCH) and the train step's tails
-    (batch TRAIN_BATCH), with times; the fused chain and the split pair
-    timed in turn, each against the fused bound. Layer 3 takes the split
-    head's own bf16 h2, so it and its plain version see the same
-    operands."""
-    from points2surf_tpu_torch.device import round_bf16
+    pooled_tail in the bf16 mode (pooled_tail_bf16.cu) against their plain
+    bf16 versions at the query path's chain call sites (batch BATCH) and
+    the train step's tails (batch TRAIN_BATCH; then ties at B = 37, and
+    ties and all-negative products at C = 1000), with times; the fused
+    chain and the split pair timed in turn, each against the fused bound.
+    Layer 3 takes the split head's own bf16 h2, so it and its plain version
+    see the same operands."""
     from points2surf_tpu_torch.ops.kernels.chain_pool import (
         chain_head, chain_head_bf16_straddles, chain_head_reference,
         chain_pool, chain_pool_reference, chain_tail, chain_tail_reference)
@@ -1816,44 +1859,38 @@ def phase_bf16_kernels(torch, device):
 
     gen = torch.Generator().manual_seed(SEED + 12)
     tails = {}
-    for n, _ in TAIL_SITES:
-        x = torch.relu(torch.randn((TRAIN_BATCH, n, 128), generator=gen)).to(
-            device)
-        w = (torch.randn((128, NET), generator=gen) / 128 ** 0.5).to(device)
-        bias = (torch.randn((NET,), generator=gen) * 0.1).to(device)
-        got = pooled_tail_reductions(x, w, bias, **bf)
-        again = pooled_tail_reductions(x, w, bias, **bf)
-        want = pooled_tail_reductions_reference(x, w, bias, **bf)
-        torch.cuda.synchronize()
-        for g, a in zip(got, again):
-            check(torch.equal(g, a), f"pooled_tail bf16 n={n}: a rerun "
-                                     f"differs")
-        bad, e_p = 0, 0.0
-        for g, r in zip(got, want):
-            if g.dtype != torch.int32:
-                e, nb = _close(g, r, "pooled_tail bf16")
-                e_p, bad = max(e_p, e), bad + nb
-        del want
-        # the arg contract in the kernel's numerics: the bf16 product there
-        c = torch.matmul(round_bf16(x), round_bf16(w)) + bias
-        for v, a in ((got[0], got[1]), (got[2], got[3])):
-            e, nb = _close(torch.gather(c, 1, a.long()[:, None, :])[:, 0], v,
-                           "pooled_tail bf16 value at arg")
-            e_p, bad = max(e_p, e), bad + nb
-        del c
+    # the train tails at batch TRAIN_BATCH, then a ragged case with ties and
+    # a ragged slice (C = 1000) with ties and all-negative products
+    cases = [(TRAIN_BATCH, n, NET) for n, _ in TAIL_SITES] + [
+        (37, 129, NET), (64, 300, 1000)]
+    for b, n, cout in cases:
+        x = torch.relu(torch.randn((b, n, 128), generator=gen)).to(device)
+        w = (torch.randn((128, cout), generator=gen) / 128 ** 0.5).to(device)
+        bias = (torch.randn((cout,), generator=gen) * 0.1).to(device)
+        first = None
+        if b != TRAIN_BATCH:
+            first = 100
+            x[:, first:] = x[:, :1]  # tied rows: the first index must win
+        if cout != NET:
+            w = -w.abs() - 1e-3  # rows past n, unmasked, would win the max
+        e_p, bad = _bf16_tail_check(torch, x, w, bias, "pooled_tail bf16",
+                                    first)
         err["pooled_tail"] = max(err["pooled_tail"], e_p)
-        t_k = _events_ms(torch, lambda: pooled_tail_reductions(
-            x, w, bias, **bf), 10)
-        t_p = _events_ms(torch, lambda: pooled_tail_reductions_reference(
-            x, w, bias, **bf), 5)
-        tails[n] = (t_k, t_p)
-        print(f"[bf16 kernel] pooled_tail B={TRAIN_BATCH} n={n} 128->{NET}: "
-              f"max_abs_err {e_p:.3e} (rtol 1e-4, atol 1e-4*max|ref|, the "
-              f"value at each arg included), {bad} outside, rerun "
-              f"bit-identical; kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        msg = (f"[bf16 kernel] pooled_tail B={b} n={n} 128->{cout}: "
+               f"max_abs_err {e_p:.3e} (rtol 1e-4, atol 1e-4*max|ref|, the "
+               f"value at each arg included), {bad} outside, rerun "
+               f"bit-identical")
+        if b == TRAIN_BATCH:
+            t_k = _events_ms(torch, lambda: pooled_tail_reductions(
+                x, w, bias, **bf), 10)
+            t_p = _events_ms(torch, lambda: pooled_tail_reductions_reference(
+                x, w, bias, **bf), 5)
+            tails[n] = (t_k, t_p)
+            msg += f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+        print(msg)
         check(bad == 0, f"pooled_tail bf16 disagrees with its plain version: "
-                        f"n={n}")
-        del x, got, again
+                        f"B={b} n={n} C={cout}")
+        del x
     res["tail_ms"] = sum(cnt * tails[n][0] for n, cnt in TAIL_SITES)
     res["tail_plain_ms"] = sum(cnt * tails[n][1] for n, cnt in TAIL_SITES)
     res["pooled_tail_cost"] = [sum(cnt * _pooled_tail_cost(TRAIN_BATCH, n)[i]
@@ -1893,8 +1930,10 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     """Phase 9, paths: the bf16 query and train step at full width, the
     train step against the CPU in bf16 mode, and phase 8's checkpoint
     reconstructed in both modes; chain_fused against its plain version at
-    every chain call site the bf16 query and reconstruction reached. Returns
-    the bf16 launch counts by path and the call sites' max abs error."""
+    every chain call site the bf16 query and reconstruction reached, and
+    pooled_tail at every tail call site of the bf16 train step. Returns
+    the bf16 launch counts by path and the chain's and the tail's call
+    sites' max abs errors."""
     from points2surf_tpu_torch.evalx import metrics
     from points2surf_tpu_torch.infer import evaluator, meshing
     from points2surf_tpu_torch.infer.query import make_sdf_query_fn
@@ -1969,10 +2008,13 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     torch.cuda.synchronize()
     _zero_launches(*kernels)
     with _Bf16Mode():
-        for i in range(BF16_WARMUP):
-            steps.train_step_fused(
-                pts_t, q_all[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], n, gt,
-                gen)
+        # the warm-up steps' tail call sites are held to the plain version
+        # below
+        with _Recorder(pn) as rec_train:
+            for i in range(BF16_WARMUP):
+                steps.train_step_fused(
+                    pts_t, q_all[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], n,
+                    gt, gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(BF16_WARMUP, BF16_WARMUP + BF16_TIMED):
@@ -1994,6 +2036,16 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     check(c["pooled_tail_reductions"] == (0, 5 * n_steps),
           "pooled_tail: not 5 bf16 launches per bf16 train step")
     del steps
+    tail_err = 0.0
+    for (shape, cout), (x, w, bias) in sorted(rec_train.tail.items()):
+        e, bad = _bf16_tail_check(torch, x, w, bias, "pooled_tail bf16")
+        print(f"[bf16 train] call site B={shape[0]} n={shape[1]} 128->{cout}:"
+              f" pooled_tail bf16 max_abs_err {e:.3e}, {bad} outside (the "
+              f"value at each arg index included), rerun bit-identical")
+        check(bad == 0, f"pooled_tail bf16 disagrees with its plain version "
+                        f"at {shape}")
+        tail_err = max(tail_err, e)
+    del rec_train
 
     # one step at batch SLICE_TRAIN_BATCH, card against CPU, both in bf16
     # mode, on the card's batch, the transformers' last layers at zero
@@ -2083,7 +2135,7 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
     err = max(_fused_sites_check(torch, rec_query, "bf16 query"),
               _fused_sites_check(torch, rec_rec, "bf16 reconstruction"))
     del rec_query, rec_rec
-    return launched, err
+    return launched, err, tail_err
 
 
 
@@ -3575,7 +3627,7 @@ def main() -> int:
         check(not any(bf16_runs.values()),
               f"a bf16 kernel launched in phases 1-8: {bf16_runs}")
         bf = phase_bf16_kernels(torch, device)
-        bfl, fused_site_err = phase_bf16_paths(
+        bfl, fused_site_err, tail_site_err = phase_bf16_paths(
             torch, np, device, cfg, model, pts_pad, n, queries, drv, tmp)
         print(f"[bf16] phase 9 took {time.perf_counter() - t9:.1f} s")
         t10 = time.perf_counter()
@@ -3605,7 +3657,8 @@ def main() -> int:
     # chain_fused on every path, so the split pair (chain_head_bf16,
     # chain_pool_bf16: checked and timed beside it) launches 0 times there;
     # chain_fused_bf16's max_abs_err takes the bf16 query's and
-    # reconstruction's call sites too. No single PyTorch call
+    # reconstruction's call sites too, pooled_tail_bf16's the bf16 train
+    # step's. No single PyTorch call
     # computes any of these functions, so library_ms is null. launches sums
     # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
     # the bf16 query, train step and reconstruction of phase 9; phase 10's
@@ -3679,9 +3732,9 @@ def main() -> int:
         ("chain_fused_bf16", "chain_fused.cu", "chain_kernel.py:187",
          max(bf["err"]["chain_fused"], fused_site_err), bf["chain"],
          bf["chain_plain"], *bf["fused_cost"]),
-        ("pooled_tail_bf16", "pooled_tail.cu", "train_tail.py:138",
-         bf["err"]["pooled_tail"], bf["tail_ms"], bf["tail_plain_ms"],
-         *bf["pooled_tail_cost"]),
+        ("pooled_tail_bf16", "pooled_tail_bf16.cu", "train_tail.py:138",
+         max(bf["err"]["pooled_tail"], tail_site_err), bf["tail_ms"],
+         bf["tail_plain_ms"], *bf["pooled_tail_cost"]),
     )
     kernels = []
     for name, src, tpu, err, ms, plain_ms, flop, nbytes in entries:

@@ -369,7 +369,7 @@ extern "C" int p2s_chain_pool(int dev, const void* h, int batch, int n, int k,
     __nv_bfloat16* w_bf = static_cast<__nv_bfloat16*>(scratch);
     out = reinterpret_cast<float*>(w_bf + (size_t)cout * kp);
     CUtensorMap two[2];
-    if (!encode_bf16_maps(two, h, true, batch, n, k, w_bf, cout, kp)) {
+    if (!encode_bf16_maps(two, h, batch, n, k, w_bf, cout, kp)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     maps[0] = two[0];

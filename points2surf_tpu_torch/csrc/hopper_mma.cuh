@@ -1,9 +1,9 @@
 // Hopper machinery shared by the port's pooled-layer kernels (mlp_maxpool.cu,
-// chain_pool.cu, pooled_tail.cu): TMA loads and mbarriers, the 3xTF32 wgmma
-// product of one K chunk on 128-byte swizzled K-major tiles, the W^T hi/lo
-// prologue, and the host's tensor maps and grid split; for the bf16-operand
-// mode, the bf16 wgmma product, the bf16 W^T prologue and the conversion of
-// a TMA'd fp32 chunk to a bf16 tile.
+// chain_pool.cu, pooled_tail.cu, chain_fused.cu, pooled_tail_bf16.cu): TMA
+// loads and mbarriers, the 3xTF32 wgmma product of one K chunk on 128-byte
+// swizzled K-major tiles, the W^T hi/lo prologue, and the host's tensor maps
+// and grid split; for the bf16-operand mode, the bf16 wgmma product and the
+// bf16 W^T prologue.
 //
 // Each kernel: a block owns one column tile of BN outputs and walks
 // 128-point slabs of one batch row. A slab arrives as K chunks of 32 fp32
@@ -175,9 +175,9 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
 }
 
 // d (64 x 128, fp32) += A (64 x 16, bf16) B (16 x 128, bf16), both from
-// shared memory, both K-major (no transpose)
+// shared memory, both K-major (no transpose); scale_d == 0 overwrites d
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a,
-                                           uint64_t desc_b) {
+                                           uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -203,7 +203,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // max into a float in global memory: non-negative values (sign bit clear)
@@ -333,40 +333,6 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[64], uint8_t* x,
   fence_acc(acc);
 }
 
-// Consumer warpgroup g (thread t of 128): its 64 rows of two fp32 chunks
-// (x0: columns 0-31, x1: columns 32-63 of a 64-wide K chunk; BM x BK each,
-// as TMA writes them with the 128-byte swizzle) rounded to bf16 into the
-// bf16 tile xb (BM x 64, the same swizzle). The 16-byte unit p of row r
-// holds logical unit p ^ (r % 8) in either layout: bf16 columns 8 u .. 8 u
-// + 7 are fp32 units 2 u and 2 u + 1 of chunk u / 4 (u taken mod 4). Each
-// thread writes four whole units, so a row's 8 threads store 128
-// contiguous bytes. Ends with the proxy fence and the warpgroup's barrier:
-// the tile is then ready for wgmma.
-__device__ __forceinline__ void chunk_to_bf16(const uint8_t* x0,
-                                              const uint8_t* x1, uint8_t* xb,
-                                              int g, int t) {
-#pragma unroll
-  for (int q = 0; q < BM / 2 * 8 / 128; ++q) {
-    const int i = t + 128 * q;
-    const int r = (BM / 2) * g + i / 8;
-    const int p = i % 8;
-    const int u = p ^ (r % 8);
-    const uint8_t* src = (u < 4 ? x0 : x1) + 128 * r;
-    const int f = 2 * (u % 4);
-    const float4 a =
-        *reinterpret_cast<const float4*>(src + 16 * (f ^ (r % 8)));
-    const float4 b =
-        *reinterpret_cast<const float4*>(src + 16 * ((f + 1) ^ (r % 8)));
-    *reinterpret_cast<uint4*>(xb + 128 * r + 16 * p) =
-        make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
-                   pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
-  }
-  // generic-proxy writes -> visible to wgmma (async proxy), then the
-  // warpgroup's own barrier
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + g) : "memory");
-}
-
 // Consumer warpgroup g, one 64-wide K chunk in bf16: acc += x . W^T with its
 // 64 rows of the bf16 tile xb (BM x 64, swizzled) and the chunk's bf16 W^T
 // tile wb (BN x 64, swizzled): four wgmma m64n128k16, also over k past kp
@@ -450,25 +416,21 @@ bool encode_ring_maps(CUtensorMap (&maps)[3], const void* x, int batch, int n,
          encode(&maps[2], w_lo, 2, w_dims, w_strides, w_box);
 }
 
-// The bf16 mode's two tensor maps: the activation (batch, n, x_cols) by
-// (128-byte rows, BM, 1) boxes, fp32 (x_bf16 == false: 32-column boxes) or
-// bf16 (64-column boxes); W^T bf16 (cout, kp) by (BK16, BN) boxes. Row
-// strides must be multiples of 16 bytes.
-bool encode_bf16_maps(CUtensorMap (&maps)[2], const void* x, bool x_bf16,
-                      int batch, int n, int x_cols, const void* w_bf,
-                      int cout, int kp) {
-  const cuuint64_t esize = x_bf16 ? 2 : 4;
+// The bf16 mode's two tensor maps: the bf16 activation (batch, n, x_cols)
+// by (64-column rows of 128 bytes, BM, 1) boxes; W^T bf16 (cout, kp) by
+// (BK16, BN) boxes. Row strides must be multiples of 16 bytes.
+bool encode_bf16_maps(CUtensorMap (&maps)[2], const void* x, int batch, int n,
+                      int x_cols, const void* w_bf, int cout, int kp) {
   const cuuint64_t x_dims[3] = {(cuuint64_t)x_cols, (cuuint64_t)n,
                                 (cuuint64_t)batch};
-  const cuuint64_t x_strides[2] = {(cuuint64_t)x_cols * esize,
-                                   (cuuint64_t)x_cols * esize * n};
-  const cuuint32_t x_box[3] = {(cuuint32_t)(128 / esize), BM, 1};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)x_cols * 2,
+                                   (cuuint64_t)x_cols * 2 * n};
+  const cuuint32_t x_box[3] = {BK16, BM, 1};
   const cuuint64_t w_dims[2] = {(cuuint64_t)kp, (cuuint64_t)cout};
   const cuuint64_t w_strides[1] = {(cuuint64_t)kp * 2};
   const cuuint32_t w_box[2] = {BK16, BN};
   return encode(&maps[0], x, 3, x_dims, x_strides, x_box,
-                x_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32) &&
+                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) &&
          encode(&maps[1], w_bf, 2, w_dims, w_strides, w_box,
                 CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }

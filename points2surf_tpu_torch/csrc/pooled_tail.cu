@@ -7,12 +7,10 @@
 //   rsum, rsq    sum and sum of squares over p < n (sum pool, BN statistics)
 //
 // Replaces the TPU kernel points2surf_tpu/ops/pallas/train_tail.py (_kernel,
-// reached through pooled_tail_reductions / _pooled_tail_reductions).
-// Two numerics classes, as there (P2S_PALLAS_TAIL_PREC): fp32 (highest),
-// 3xTF32 products on the tensor cores (hopper_mma.cuh), ~2^-21 of each
-// product short of fp32; and bf16 operands (default there), x and W
-// rounded to the nearest bf16 (ties to even), one bf16 wgmma per k16 step,
-// fp32 accumulation. The two modes share everything but the main loop.
+// reached through pooled_tail_reductions / _pooled_tail_reductions) in its
+// fp32 class (P2S_PALLAS_TAIL_PREC=highest): 3xTF32 products on the tensor
+// cores (hopper_mma.cuh), ~2^-21 of each product short of fp32. The bf16
+// class (default there) is pooled_tail_bf16.cu.
 //
 // What bounds it on an H100: arithmetic. The five conv3 tails of a train
 // step at batch 1000 are x (B, n, 128) @ W (128, 1024) over n = 1300, 1000,
@@ -20,21 +18,16 @@
 // work that 3xTF32 gets from the 495 TFLOP/s dense TF32 peak, against
 // 0.6 ms to read x (2.0 GB) once at 3.35 TB/s. The literal version would
 // write and re-read a (B, n, C) activation (5.3 GB for the 1,300-point
-// tail). In bf16 the same work is 1.03 ms at the 989 TFLOP/s dense bf16
-// peak, still above the 0.6 ms of bytes: x stays fp32 in device memory, as
-// the train forward produces it.
+// tail).
 //
 // Design: chain_pool.cu's main loop with another epilogue. One block per
 // (128-column tile, batch row), column tile fastest so that the 8 tiles of
-// a row share its x slabs in L2. The block's W^T tile (fp32: hi and lo,
-// 128 KB, from split_weights_kernel; bf16: 32 KB, from bf16_weights_kernel)
-// is loaded once by TMA and stays resident; x streams in 128-point slabs
-// through a 3-stage ring by TMA from its 3-D tensor map; two consumer
-// warpgroups issue the wgmma, one thread of a producer warpgroup the loads.
-// fp32: a stage is one 32-column chunk, split in place into tf32 hi and lo
-// (mma_chunk). bf16: a stage is two 32-column fp32 chunks, which the
-// consumers round into one 64-column bf16 tile beside them (chunk_to_bf16)
-// before four wgmma k16 (mma_chunk_bf16). The point axis is not split, so
+// a row share its x slabs in L2. The block's W^T tile (hi and lo, 128 KB,
+// from split_weights_kernel) is loaded once by TMA and stays resident; x
+// streams in 128-point slabs through a 3-stage ring by TMA from its 3-D
+// tensor map; two consumer warpgroups issue the wgmma, one thread of a
+// producer warpgroup the loads. A stage is one 32-column chunk, split in
+// place into tf32 hi and lo (mma_chunk). The point axis is not split, so
 // every result, the sums included, is reduced in a fixed order: bitwise
 // reproducible.
 //
@@ -71,35 +64,16 @@ constexpr int NC = 16;     // columns a lane reduces
 constexpr int PARTS = 32;  // partial states of a column: 8 warps x 4 pairs
 constexpr int NRED = 6;    // reductions per column
 
-// Shared-memory plan of each mode: K chunks per slab, the resident W^T
-// tiles (fp32: hi then lo), one ring stage, and the bytes TMA brings into a
-// stage.
-template <bool kBf16>
-struct Plan {
-  static constexpr int CHUNKS = CIN / BK;
-  static constexpr int WRES_BYTES = 2 * CHUNKS * W_BYTES;
-  static constexpr int STAGE_BYTES = 2 * X_BYTES;  // x chunk (raw, hi), lo
-  static constexpr int TX_BYTES = X_BYTES;
-};
-template <>
-struct Plan<true> {
-  static constexpr int CHUNKS = CIN / BK16;
-  static constexpr int WRES_BYTES = CHUNKS * WB_BYTES;
-  // two fp32 chunks as TMA writes them, then their bf16 tile
-  static constexpr int STAGE_BYTES = 2 * X_BYTES + XB_BYTES;
-  static constexpr int TX_BYTES = 2 * X_BYTES;
-};
-
+// Shared-memory plan: K chunks per slab, the resident W^T tiles (hi then
+// lo), one ring stage (x chunk (raw, then hi), then lo).
+constexpr int CHUNKS = CIN / BK;
+constexpr int WRES_BYTES = 2 * CHUNKS * W_BYTES;
+constexpr int STAGE_BYTES = 2 * X_BYTES;
 // + 1024: the swizzled tiles need 1024-byte alignment, the base has 16
-template <bool kBf16>
-constexpr int smem_bytes() {
-  return Plan<kBf16>::WRES_BYTES + STAGES * Plan<kBf16>::STAGE_BYTES +
-         BARS_BYTES + 1024;
-}
-static_assert(smem_bytes<false>() <= 232448 && smem_bytes<true>() <= 232448,
-              "shared memory over the sm_90 limit");
-static_assert(NRED * PARTS * BN * 4 <= STAGES * Plan<false>::STAGE_BYTES &&
-                  NRED * PARTS * BN * 4 <= STAGES * Plan<true>::STAGE_BYTES,
+constexpr int SMEM_BYTES = WRES_BYTES + STAGES * STAGE_BYTES + BARS_BYTES +
+                           1024;
+static_assert(SMEM_BYTES <= 232448, "shared memory over the sm_90 limit");
+static_assert(NRED * PARTS * BN * 4 <= STAGES * STAGE_BYTES,
               "the partial states alias the ring");
 
 // column of the tile that lane slot c (of NC) holds after the exchange
@@ -108,24 +82,22 @@ __device__ __forceinline__ int lane_col(int c, int rr, int lane) {
          2 * (lane % 4) + (c & 1);
 }
 
-// w_a_map: W^T hi (fp32) or W^T bf16; w_b_map: W^T lo (fp32 only)
-template <bool kBf16>
+// w_hi_map, w_lo_map: W^T split into tf32 hi and lo
 __global__ void __launch_bounds__(BLOCK, 1)
 pooled_tail_kernel(const __grid_constant__ CUtensorMap x_map,
-                   const __grid_constant__ CUtensorMap w_a_map,
-                   const __grid_constant__ CUtensorMap w_b_map, int n,
+                   const __grid_constant__ CUtensorMap w_hi_map,
+                   const __grid_constant__ CUtensorMap w_lo_map, int n,
                    int cout, int col_tiles, const float* __restrict__ bias,
                    float* __restrict__ cmax, int* __restrict__ amax,
                    float* __restrict__ cmin, int* __restrict__ amin,
                    float* __restrict__ rsum, float* __restrict__ rsq) {
-  using P = Plan<kBf16>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* w_res = smem;  // fp32: hi chunks, then lo chunks
-  uint8_t* w_lo = smem + P::WRES_BYTES / 2;
-  uint8_t* ring = smem + P::WRES_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * P::STAGE_BYTES);
+  uint8_t* w_res = smem;  // hi chunks, then lo chunks
+  uint8_t* w_lo = smem + WRES_BYTES / 2;
+  uint8_t* ring = smem + WRES_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* w_full = empty + STAGES;
 
@@ -147,30 +119,19 @@ pooled_tail_kernel(const __grid_constant__ CUtensorMap x_map,
   if (tid >= CONSUMERS) {  // producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (tid == CONSUMERS) {
-      mbar_expect_tx(w_full, P::WRES_BYTES);
-      for (int k = 0; k < P::CHUNKS; ++k) {
-        if (kBf16) {
-          tma_load_2d(w_res + k * WB_BYTES, &w_a_map, w_full, k * BK16,
-                      col0);
-        } else {
-          tma_load_2d(w_res + k * W_BYTES, &w_a_map, w_full, k * BK, col0);
-          tma_load_2d(w_lo + k * W_BYTES, &w_b_map, w_full, k * BK, col0);
-        }
+      mbar_expect_tx(w_full, WRES_BYTES);
+      for (int k = 0; k < CHUNKS; ++k) {
+        tma_load_2d(w_res + k * W_BYTES, &w_hi_map, w_full, k * BK, col0);
+        tma_load_2d(w_lo + k * W_BYTES, &w_lo_map, w_full, k * BK, col0);
       }
       int it = 0;
       for (int s = 0; s < n_slabs; ++s) {
-        for (int k = 0; k < P::CHUNKS; ++k, ++it) {
+        for (int k = 0; k < CHUNKS; ++k, ++it) {
           const int st = it % STAGES;
-          uint8_t* dst = ring + st * P::STAGE_BYTES;
+          uint8_t* dst = ring + st * STAGE_BYTES;
           mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[st], P::TX_BYTES);
-          if (kBf16) {  // the chunk's two 32-column halves
-            tma_load_3d(dst, &x_map, &full[st], k * BK16, s * BM, b);
-            tma_load_3d(dst + X_BYTES, &x_map, &full[st], k * BK16 + BK,
-                        s * BM, b);
-          } else {
-            tma_load_3d(dst, &x_map, &full[st], k * BK, s * BM, b);
-          }
+          mbar_expect_tx(&full[st], X_BYTES);
+          tma_load_3d(dst, &x_map, &full[st], k * BK, s * BM, b);
         }
       }
     }
@@ -205,17 +166,12 @@ pooled_tail_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int s = 0; s < n_slabs; ++s) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    for (int k = 0; k < P::CHUNKS; ++k, ++it) {
+    for (int k = 0; k < CHUNKS; ++k, ++it) {
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
-      uint8_t* base = ring + st * P::STAGE_BYTES;
-      if (kBf16) {
-        chunk_to_bf16(base, base + X_BYTES, base + 2 * X_BYTES, g, t);
-        mma_chunk_bf16(acc, base + 2 * X_BYTES, w_res + k * WB_BYTES, g);
-      } else {
-        mma_chunk(acc, base, base + X_BYTES, w_res + k * W_BYTES,
-                  w_lo + k * W_BYTES, g, t);
-      }
+      uint8_t* base = ring + st * STAGE_BYTES;
+      mma_chunk(acc, base, base + X_BYTES, w_res + k * W_BYTES,
+                w_lo + k * W_BYTES, g, t);
       mbar_arrive(&empty[st]);
     }
     // acc[8 J + 4 jj + 2 h + e] is row rr + 8 h, column 16 J + 8 jj +
@@ -319,14 +275,13 @@ pooled_tail_kernel(const __grid_constant__ CUtensorMap x_map,
 
 // On device `dev` and its stream `stream`: for c = x @ w + b, the six
 // reductions over p < n, each (batch, cout): cmax, cmin, rsum, rsq fp32,
-// amax, amin int32 (first index on ties). x is (batch, n, k) with k == 128,
-// base 16-byte aligned; w (k, cout); b (cout,). bf16 == 0: fp32-class
-// products, scratch holds 2 * cout * 128 floats (the split W^T); bf16 != 0:
-// x and w rounded to bf16, scratch holds cout * 128 bf16 (W^T). scratch
-// 16-byte aligned. All contiguous. Returns a cudaError_t; 0 means launched.
+// amax, amin int32 (first index on ties), with fp32-class products. x is
+// (batch, n, k) with k == 128, base 16-byte aligned; w (k, cout); b
+// (cout,). scratch (16-byte aligned) holds 2 * cout * 128 floats (the split
+// W^T). All contiguous. Returns a cudaError_t; 0 means launched.
 extern "C" int p2s_pooled_tail(int dev, const void* x, int batch, int n,
                                int k, const void* w, const void* b, int cout,
-                               int bf16, void* scratch, void* cmax,
+                               void* scratch, void* cmax,
                                void* amax, void* cmin, void* amin,
                                void* rsum, void* rsq, void* stream) {
   const int col_tiles = (cout + BN - 1) / BN;
@@ -336,7 +291,7 @@ extern "C" int p2s_pooled_tail(int dev, const void* x, int batch, int n,
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the shared-memory attribute of both modes, once per device
+  // the shared-memory attribute, once per device
   constexpr int kMaxDevices = 64;
   static bool ready[kMaxDevices] = {};
   if (dev < 0 || dev >= kMaxDevices) {
@@ -346,14 +301,9 @@ extern "C" int p2s_pooled_tail(int dev, const void* x, int batch, int n,
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(pooled_tail_kernel<false>,
+    err = cudaFuncSetAttribute(pooled_tail_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<false>());
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(pooled_tail_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes<true>());
-    }
+                               SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
@@ -363,40 +313,19 @@ extern "C" int p2s_pooled_tail(int dev, const void* x, int batch, int n,
   const float* bias = static_cast<const float*>(b);
 
   CUtensorMap maps[3];
-  if (bf16) {
-    __nv_bfloat16* w_bf = static_cast<__nv_bfloat16*>(scratch);
-    CUtensorMap two[2];
-    if (!encode_bf16_maps(two, x, false, batch, n, CIN, w_bf, cout, CIN)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    maps[0] = two[0];
-    maps[1] = maps[2] = two[1];
-    bf16_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
-        static_cast<const float*>(w), CIN, cout, CIN, w_bf, nullptr, 0);
-  } else {
-    float* w_hi = static_cast<float*>(scratch);
-    float* w_lo = w_hi + (size_t)cout * CIN;
-    if (!encode_ring_maps(maps, x, batch, n, CIN, w_hi, w_lo, cout, CIN)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    split_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
-        static_cast<const float*>(w), CIN, cout, CIN, w_hi, w_lo, nullptr,
-        0);
+  float* w_hi = static_cast<float*>(scratch);
+  float* w_lo = w_hi + (size_t)cout * CIN;
+  if (!encode_ring_maps(maps, x, batch, n, CIN, w_hi, w_lo, cout, CIN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  split_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(w), CIN, cout, CIN, w_hi, w_lo, nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bf16) {
-    pooled_tail_kernel<true><<<blocks, BLOCK, smem_bytes<true>(), st>>>(
-        maps[0], maps[1], maps[2], n, cout, col_tiles, bias,
-        static_cast<float*>(cmax), static_cast<int*>(amax),
-        static_cast<float*>(cmin), static_cast<int*>(amin),
-        static_cast<float*>(rsum), static_cast<float*>(rsq));
-  } else {
-    pooled_tail_kernel<false><<<blocks, BLOCK, smem_bytes<false>(), st>>>(
-        maps[0], maps[1], maps[2], n, cout, col_tiles, bias,
-        static_cast<float*>(cmax), static_cast<int*>(amax),
-        static_cast<float*>(cmin), static_cast<int*>(amin),
-        static_cast<float*>(rsum), static_cast<float*>(rsq));
-  }
+  pooled_tail_kernel<<<blocks, BLOCK, SMEM_BYTES, st>>>(
+      maps[0], maps[1], maps[2], n, cout, col_tiles, bias,
+      static_cast<float*>(cmax), static_cast<int*>(amax),
+      static_cast<float*>(cmin), static_cast<int*>(amin),
+      static_cast<float*>(rsum), static_cast<float*>(rsq));
   return static_cast<int>(cudaGetLastError());
 }

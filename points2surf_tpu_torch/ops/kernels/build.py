@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -93,6 +95,13 @@ def load_library(name: str, entry_points: tuple) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = CI
     return lib
+
+
+@functools.cache
+def sm_count(dev: int) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (the persistent
+    kernels' launch plans)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -36,14 +36,13 @@ Unset means fp32 here; in the JAX package it means bf16. Launches count in
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from points2surf_tpu_torch.device import bf16_operands as _resolve_mode
 from points2surf_tpu_torch.device import round_bf16
 from points2surf_tpu_torch.ops.kernels.build import (
-    CI, VP, check_launch, load_library)
+    CI, VP, check_launch, load_library, sm_count)
 
 # widths the CUDA kernels are compiled for (conv1/conv2 of every trunk)
 KERNEL_C1 = 64
@@ -324,7 +323,7 @@ def chain_fused(x: torch.Tensor, layers, *, sym_op: str = "max",
         return chain_pool_reference(x, layers, sym_op=sym_op,
                                     relu_last=relu_last, bf16_operands=True)
     dev = x.device.index
-    plan = fused_launch_plan(b, n, cout, sym_op, _sm_count(dev))
+    plan = fused_launch_plan(b, n, cout, sym_op, sm_count(dev))
     # One allocation: the bf16 W1^T (64 x 64), W2^T (128 x 64) and W3^T
     # (Cout x 128), half a float each, then out.
     wt_floats = (KERNEL_C1 * KERNEL_CIN_MAX + KERNEL_C2 * KERNEL_C1
@@ -376,11 +375,6 @@ chain_head.launches_bf16 = 0
 chain_pool.launches = 0
 chain_pool.launches_bf16 = 0
 chain_pool.launches_fused_bf16 = 0
-
-
-@functools.cache
-def _sm_count(dev: int) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 _HEAD_ENTRY_POINTS = (

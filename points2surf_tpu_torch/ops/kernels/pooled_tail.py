@@ -1,4 +1,5 @@
-"""Train-mode pooled-tail reductions: wrapper of ``csrc/pooled_tail.cu``.
+"""Train-mode pooled-tail reductions: wrapper of ``csrc/pooled_tail.cu``
+(fp32 class) and ``csrc/pooled_tail_bf16.cu`` (bf16-operand class).
 
 Counterpart of ``points2surf_tpu/ops/pallas/train_tail.py``
 (``pooled_tail_reductions``) in both of its numerics modes. For
@@ -13,9 +14,16 @@ reads ``P2S_PALLAS_TAIL_PREC`` at call time (``device.bf16_operands``):
 unset or ``highest`` is the fp32 class (3xTF32 ``wgmma``), ``default``
 rounds x and w to bf16 (nearest even) and accumulates in fp32 (bf16
 ``wgmma``). Unset means fp32 here; in the JAX package it means bf16. A CPU
-tensor takes the plain PyTorch version; a CUDA tensor launches the kernel
-(fed by TMA), built with ``nvcc`` at its first use, or raises. Launches
-count in ``pooled_tail_reductions.launches`` (fp32) and ``.launches_bf16``.
+tensor takes the plain PyTorch version; a CUDA tensor launches the mode's
+kernel (fed by TMA), built with ``nvcc`` at its first use, or raises.
+Launches count in ``pooled_tail_reductions.launches`` (fp32) and
+``.launches_bf16``.
+
+The bf16 kernel runs persistent blocks from a launch plan computed here
+(:func:`bf16_launch_plan`, pure Python, tested on the CPU): block i keeps
+the 256-column slice i % slices of W^T and walks the whole batch rows
+i // slices, + blocks // slices, ...; the kernel refuses a plan whose
+shared-memory size differs from its own.
 """
 
 from __future__ import annotations
@@ -25,10 +33,45 @@ import torch
 from points2surf_tpu_torch.device import bf16_operands as _resolve_mode
 from points2surf_tpu_torch.device import round_bf16
 from points2surf_tpu_torch.ops.kernels.build import (
-    CI, VP, check_launch, load_library)
+    CI, VP, check_launch, load_library, sm_count)
 
 KERNEL_CIN = 128  # the conv2 width that feeds every conv3 tail
 PREC_ENV = "P2S_PALLAS_TAIL_PREC"
+
+# csrc/pooled_tail_bf16.cu's launch plan: a block keeps a slice of 256 W^T
+# columns (two consumer warpgroups of 128) and walks 128-point slabs of its
+# rows; one block per SM
+BF16_SLICE = 256
+BF16_SLAB = 128
+SMEM_LIMIT = 232448  # bytes a block may have on sm_90
+
+
+def bf16_smem_bytes() -> int:
+    """Shared memory of a pooled_tail_bf16.cu block, by its plan (the kernel
+    refuses a launch whose plan differs): the W^T slice in bf16, two bf16
+    slab tiles, a slab's four fp32 staging chunks (128-byte rows each), the
+    two warpgroups' four warps' six partials of 128 columns, 9 mbarriers,
+    and 1,024 bytes to align the swizzled tiles."""
+    row = 128
+    w = BF16_SLICE * KERNEL_CIN * 2
+    tiles = 2 * BF16_SLAB * KERNEL_CIN * 2
+    staging = (KERNEL_CIN // 32) * BF16_SLAB * row
+    partials = 2 * 4 * 6 * 128 * 4
+    bars = (1 + KERNEL_CIN // 32 + 2 * 2) * 8
+    return w + tiles + staging + partials + bars + 1024
+
+
+def bf16_launch_plan(batch: int, n: int, cout: int, sms: int) -> dict:
+    """Grid of :func:`pooled_tail_reductions`' bf16 kernel on a card of
+    ``sms`` SMs: one block per SM, each keeping one 256-column slice of W^T,
+    as many blocks per slice as the SMs allow and the batch fills. Returns
+    slices, slabs (of 128 points per row: the kernel walks every slab of a
+    row, the point axis is never split), blocks and smem_bytes."""
+    slices = -(-cout // BF16_SLICE)
+    per_slice = max(1, sms // slices)
+    return {"slices": slices, "slabs": -(-n // BF16_SLAB),
+            "blocks": slices * min(per_slice, batch),
+            "smem_bytes": bf16_smem_bytes()}
 
 
 def pooled_tail_reductions_reference(x: torch.Tensor, w: torch.Tensor,
@@ -69,8 +112,8 @@ def pooled_tail_reductions(x: torch.Tensor, w: torch.Tensor,
     amin, rsum, rsq), each (B, C); ties take the first index.
     ``bf16_operands``: True rounds x and w to bf16, False keeps fp32-class
     products, None reads ``P2S_PALLAS_TAIL_PREC`` (unset: fp32). On CUDA
-    the kernel takes Cin == 128 and a 16-byte aligned x, any B and any
-    n >= 1.
+    either kernel takes Cin == 128 and a 16-byte aligned x, any B, any
+    n >= 1 and any C >= 1.
     """
     _check(x, w, b)
     bf16 = _resolve_mode(bf16_operands, PREC_ENV)
@@ -85,24 +128,32 @@ def pooled_tail_reductions(x: torch.Tensor, w: torch.Tensor,
                          f"aligned x with Cin == {KERNEL_CIN}, got "
                          f"{tuple(x.shape)}")
     c = w.shape[1]
-    # W^T (C, 128): bf16, or split into tf32 hi and lo parts
-    scratch = (torch.empty(c * cin, device=x.device, dtype=torch.bfloat16)
-               if bf16 else
-               torch.empty(2 * c * cin, device=x.device, dtype=torch.float32))
     f32 = torch.empty((4, bsz, c), device=x.device, dtype=torch.float32)
     i32 = torch.empty((2, bsz, c), device=x.device, dtype=torch.int32)
     cmax, cmin, rsum, rsq = f32
     amax, amin = i32
+    outs = (cmax.data_ptr(), amax.data_ptr(), cmin.data_ptr(),
+            amin.data_ptr(), rsum.data_ptr(), rsq.data_ptr())
     dev = x.device.index
-    rc = _library().p2s_pooled_tail(
-        dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
-        int(bf16), scratch.data_ptr(), cmax.data_ptr(), amax.data_ptr(),
-        cmin.data_ptr(), amin.data_ptr(), rsum.data_ptr(), rsq.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev))
-    check_launch("pooled_tail", rc)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     if bf16:
+        plan = bf16_launch_plan(bsz, n, c, sm_count(dev))
+        # W^T (C, 128) in bf16
+        scratch = torch.empty(c * cin, device=x.device, dtype=torch.bfloat16)
+        rc = _bf16_library().p2s_pooled_tail_bf16(
+            dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
+            plan["blocks"], plan["smem_bytes"], scratch.data_ptr(), *outs,
+            stream)
+        check_launch("pooled_tail_bf16", rc)
         pooled_tail_reductions.launches_bf16 += 1
     else:
+        # W^T (C, 128) split into tf32 hi and lo parts
+        scratch = torch.empty(2 * c * cin, device=x.device,
+                              dtype=torch.float32)
+        rc = _library().p2s_pooled_tail(
+            dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
+            scratch.data_ptr(), *outs, stream)
+        check_launch("pooled_tail", rc)
         pooled_tail_reductions.launches += 1
     return cmax, amax, cmin, amin, rsum, rsq
 
@@ -113,6 +164,13 @@ pooled_tail_reductions.launches_bf16 = 0
 
 def _library():
     return load_library("pooled_tail", (
-        ("p2s_pooled_tail", (CI, VP, CI, CI, CI, VP, VP, CI, CI, VP,
+        ("p2s_pooled_tail", (CI, VP, CI, CI, CI, VP, VP, CI, VP,
                              VP, VP, VP, VP, VP, VP, VP)),
+    ))
+
+
+def _bf16_library():
+    return load_library("pooled_tail_bf16", (
+        ("p2s_pooled_tail_bf16", (CI, VP, CI, CI, CI, VP, VP, CI, CI, CI,
+                                  VP, VP, VP, VP, VP, VP, VP, VP)),
     ))
