@@ -111,7 +111,24 @@ the reconstruction of a 256^3 mesh:
    step; the evaluator on phase 8's checkpoint over abc_minimal's three
    shapes (first 150 queries each), round-robin over the two ranks: every
    shape written once, each rank's files against the CPU run of the same
-   share; each kernel against its plain version at the ranks' call sites.
+   share; each kernel against its plain version at the ranks' call sites;
+13. tensor parallelism (``parallel/sharding.py``): gloo ranks on the one
+   card as a ``make_mesh(data=, model=)`` grid over the vanilla model at
+   full width, partitioned by the JAX package's rule (``min_dim`` 512:
+   every conv3 and its BatchNorm, the transformers' fc1, the feature
+   transformers' fc3 and the head's fc1 layers hold column blocks): a
+   ``1 x 2`` grid at the train batch of 1000 and the query batch of 4096,
+   a ``2 x 2`` grid at 128 and 512. Each rank runs the chain kernels and
+   ``pooled_tail`` on its 1024 / model columns; one query batch and one
+   train step against one process on the whole model from the same state
+   and draws (query rtol / atol 1e-4 with no sign flip, losses rtol 1e-4,
+   the gradients gathered whole within 1e-3 * max|g|; the one-process
+   tails take the grid's arg indices where each is an arg of its own
+   values), exact launch counts (5 chains per forward, 5 tails per step,
+   per rank), each rank's ms per query batch and per step and the
+   all-reduces' share of them, then one query batch and one step in the
+   bf16 modes; each kernel against its plain version at every column-slice
+   call site, in both modes.
 
 Any failed phase exits non-zero. The line before the last is a JSON object
 with one entry per kernel; the last line is
@@ -231,6 +248,23 @@ PARALLEL_RANKS = 2
 PARALLEL_STEPS = 3
 PARALLEL_TIMED = 5
 PARALLEL_TIMEOUT = 600
+# phase 13: tensor parallelism. Gloo ranks share the card as a (data,
+# model) grid over the vanilla model at full width (net 1024, the JAX
+# package's min_dim 512: every conv3 and its BN, the transformers' fc1 and
+# the feature transformers' fc3, the head's fc1 layers): per grid, (data,
+# model, global train batch, global query batch); one checked query batch
+# and train step against one process, TP_TIMED timed ones twice (as they
+# run, and with each all-reduce timed), one of each in the bf16 modes
+TP_GRIDS = ((1, 2, TRAIN_BATCH, BATCH), (2, 2, 128, 512))
+TP_MIN_DIM = 512
+TP_TIMED = 3
+# a relu input within this of 0 is a near-tie: two fp32 summation orders,
+# or fp32 and float64, may put it on either side (they differ by ~1e-5 at
+# these widths), and the other decision routes that element's gradient
+# elsewhere. Phase 13 records the grid's near-ties in its checked step and
+# the one-process and float64 steps take the grid's decisions there, as they
+# take its max-pool args
+RELU_TIE = 1e-3
 DATAGEN_STAGES = ("00_base_meshes", "01_base_meshes_ply",
                   "02_meshes_cleaned", "03_meshes", "04_pts", "04_pts_vis",
                   "04_pts_locations", "04_pts_rotations", "04_hits_per_scan",
@@ -3113,6 +3147,103 @@ class _ArgRecorder:
         self.pn.pooled_tail_reductions = self.real
 
 
+def _replaying_tail(torch, real_tail, queue, stats):
+    """``pooled_tail_reductions`` that takes the arg indices of another
+    run's calls, in turn from ``queue`` ((amax, amin) per call), where
+    each is an arg of its own values within rtol / atol 1e-4 (phase 5's
+    replay): a near-tie decided the other way routes a row's gradient
+    elsewhere. ``stats`` counts the args, those its own differ from, and
+    those that are no arg of its values."""
+    def replay(x, w, bias):
+        cmax, amax, cmin, amin, rsum, rsq = real_tail(x, w, bias)
+        pooled = []
+        for own, val, g in ((amax, cmax, queue[0][0]),
+                            (amin, cmin, queue[0][1])):
+            g = g.to(x.device)
+            rows = torch.gather(x, 1, g.long()[:, :, None].expand(
+                -1, -1, x.shape[2]))  # (B, C, Cin)
+            at = torch.einsum("bci,ic->bc", rows, w) + bias
+            tol = 1e-4 * float(val.abs().max())
+            stats["args"] += g.numel()
+            stats["own_differs"] += int((own != g).sum())
+            stats["bad"] += int(((at - val).abs()
+                                 > tol + 1e-4 * val.abs()).sum())
+            pooled.append((at, g))
+        queue.pop(0)
+        return pooled[0][0], pooled[0][1], pooled[1][0], pooled[1][1], \
+            rsum, rsq
+
+    replay.queue = queue
+    return replay
+
+
+class _TorchWithRelu:
+    """``torch`` with another ``relu``: stands in for ``models/pointnet``'s
+    ``torch`` while a checked step records or replays relu decisions."""
+
+    def __init__(self, torch, relu):
+        self.__dict__.update(_torch=torch, relu=relu)
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+def _relu_ties_recorder(torch, calls):
+    """A ``relu`` that appends, per call, (shape, flat indices, values) of
+    its input's near-ties (|z| < RELU_TIE) to ``calls``, on the CPU."""
+    def relu(z):
+        zf = z.detach().reshape(-1)
+        idx = torch.nonzero(zf.abs() < RELU_TIE).reshape(-1)
+        calls.append((tuple(z.shape), idx.cpu(), zf[idx].float().cpu()))
+        return torch.relu(z)
+
+    return relu
+
+
+def _relu_ties_replay(torch, np, ranks, model_size, stats):
+    """A ``relu`` for the one-process (whole) model that takes, call by
+    call, the grid ranks' decisions at their near-ties (``ranks``: each
+    rank's recorded calls, rank ``d * model_size + m``): a rank's rows are
+    its data rank's block of the batch, its columns the whole width
+    (replicated, taken from model rank 0) or its model rank's block.
+    ``stats`` counts the near-ties taken, those where this step's own
+    decision differs, those of them outside RELU_TIE of 0 here (none may
+    be), and the largest distance between this step's input and the
+    grid's at them."""
+    done = [0]
+
+    def relu(z):
+        j = done[0]
+        done[0] += 1
+        pos, val = [], []
+        for r, calls in enumerate(ranks):
+            d, m = divmod(r, model_size)
+            shape, idx, zr = calls[j]
+            if shape[-1] == z.shape[-1] and m:
+                continue  # a replicated layer: model rank 0's
+            at = list(np.unravel_index(idx.numpy(), shape))
+            at[0] = at[0] + d * shape[0]
+            if shape[-1] != z.shape[-1]:
+                at[-1] = at[-1] + m * shape[-1]
+            pos.append(np.ravel_multi_index(at, tuple(z.shape)))
+            val.append(zr)
+        pos = torch.from_numpy(np.concatenate(pos)).to(z.device)
+        val = torch.cat(val).to(z.device, z.dtype)
+        own = z.detach().reshape(-1)[pos]
+        flip = (own > 0) != (val > 0)
+        stats["ties"] += pos.numel()
+        stats["differs"] += int(flip.sum())
+        stats["bad"] += int((flip & (own.abs() >= RELU_TIE)).sum())
+        if pos.numel():
+            stats["dz"] = max(stats["dz"], float((own - val).abs().max()))
+        mask = (z.detach() > 0).contiguous()
+        mask.view(-1)[pos] = val > 0
+        return torch.where(mask, z, 0.0)
+
+    relu.done = done
+    return relu
+
+
 def _parallel_steps(torch, device, job, world, lo, hi, starts=None):
     """PARALLEL_STEPS fused steps of the job's model on rows lo:hi of the
     job's global batches (draws of one seeded generator on the card, each
@@ -3308,16 +3439,17 @@ def _parallel_eval_data(np, data, tmp):
     return root, names, n_q
 
 
-def _run_ranks(work, world):
-    """Start ``world`` ranks of this script on the card; fail, and stop
-    every rank, when one fails or PARALLEL_TIMEOUT passes."""
+def _run_ranks(work, world, flag="--parallel-rank", phase=12, tag="parallel"):
+    """Start ``world`` ranks of this script (``flag R W DIR``) on the card;
+    fail, and stop every rank, when one fails or PARALLEL_TIMEOUT
+    passes."""
     logs = [open(os.path.join(work, f"rank{r}.log"), "w")
             for r in range(world)]
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+        [sys.executable, os.path.abspath(__file__), flag,
          str(r), str(world), work], cwd=ROOT, env=env, stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(world)]
     deadline = time.monotonic() + PARALLEL_TIMEOUT
@@ -3337,10 +3469,10 @@ def _run_ranks(work, world):
     for r, p in enumerate(procs):
         with open(os.path.join(work, f"rank{r}.log")) as f:
             tail = f.read()[-6000:]
-        print(f"[parallel] rank {r} exit {p.returncode}; its last output:\n"
-              + "\n".join("[parallel]   " + ln for ln in tail.splitlines()))
+        print(f"[{tag}] rank {r} exit {p.returncode}; its last output:\n"
+              + "\n".join(f"[{tag}]   " + ln for ln in tail.splitlines()))
     codes = [p.returncode for p in procs]
-    check(codes == [0] * world, f"phase 12: a rank failed or timed out "
+    check(codes == [0] * world, f"phase {phase}: a rank failed or timed out "
                                 f"(exit codes {codes})")
 
 
@@ -3412,25 +3544,7 @@ def phase_parallel(torch, np, device, model, pts_pad, n, queries, drv, tmp,
     queue = [tuple(torch.cat([res["args"][j][m] for res in ranks])
                    for m in (0, 1)) for j in range(len(ranks[0]["args"]))]
     real_tail = pn.pooled_tail_reductions
-
-    def replay(x, w, bias):
-        cmax, amax, cmin, amin, rsum, rsq = real_tail(x, w, bias)
-        pooled = []
-        for own, val, g in ((amax, cmax, queue[0][0]),
-                            (amin, cmin, queue[0][1])):
-            g = g.to(x.device)
-            rows = torch.gather(x, 1, g.long()[:, :, None].expand(
-                -1, -1, x.shape[2]))  # (B, C, Cin)
-            at = torch.einsum("bci,ic->bc", rows, w) + bias
-            tol = 1e-4 * float(val.abs().max())
-            stats["args"] += g.numel()
-            stats["own_differs"] += int((own != g).sum())
-            stats["bad"] += int(((at - val).abs()
-                                 > tol + 1e-4 * val.abs()).sum())
-            pooled.append((at, g))
-        queue.pop(0)
-        return pooled[0][0], pooled[0][1], pooled[1][0], pooled[1][1], \
-            rsum, rsq
+    replay = _replaying_tail(torch, real_tail, queue, stats)
 
     for k in real:
         setattr(torch.distributed, k, counting(k))
@@ -3554,9 +3668,446 @@ def phase_parallel(torch, np, device, model, pts_pad, n, queries, drv, tmp,
             "err": err}
 
 
+def _tp_model(torch):
+    """The vanilla model (non-shared transformers, the driver's) at full
+    width with seeded weights and running statistics, the transformers'
+    last layers at zero (phase 5's remedy), on the CPU."""
+    model = _bench_model(torch, "cpu", shared_transformation=False)
+    return _zero_transformers(torch, model).train()
+
+
+def _tp_runs(torch, device, job, model, mesh=None, replay=None, relu=None):
+    """The checked query batch and train step of phase 13 on ``model``
+    (partitioned on ``mesh``, or whole), each from the same seeded draws
+    on the card, every rank drawing the whole batch: (query distances, the
+    step's losses, its extracted batch, and the functions that run query
+    batch i and train step i). ``replay`` stands in for the model's
+    pooled_tail_reductions and ``relu`` for its relus during the step."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.infer.query import make_sdf_query_fn
+    from points2surf_tpu_torch.ops.patches import PatchConfig, draw_batch
+    from points2surf_tpu_torch.parallel import distributed
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    qcfg = PatchConfig(points_per_patch=300, patch_radius=0.0,
+                       sub_sample_size=1000, subsample_candidates=4)
+    tcfg = _train_cfg()
+    pts, n = job["pts"].to(device), job["n"]
+    qb, tb = job["query_batch"], job["train_batch"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    query = make_sdf_query_fn(model, OUTPUTS, qcfg, fixed_radius=False,
+                              mesh=mesh)
+    steps = make_train_step(model, OUTPUTS, lr=0.01, momentum=0.9,
+                            patch_cfg=tcfg)
+    q_all, tq, tgt = (job[k].to(device) for k in ("queries", "train_q",
+                                                  "train_gt"))
+
+    def query_batch(i):
+        model.eval()  # a train step left it in train mode
+        draws = draw_batch(gen, qb, pts.shape[0], qcfg, n_valid=n)
+        return query(pts, q_all[i * qb:(i + 1) * qb], n, draws)
+
+    def train_step(i):
+        lo, hi = distributed.rank_rows(tb)
+        draws = draw_batch(gen, tb, pts.shape[0], tcfg, train=True,
+                           n_valid=n)
+        if distributed.data_size() > 1:
+            draws = draws.rows(lo, hi, chunk=tcfg.query_chunk)
+        q, gt = tq[i * tb:(i + 1) * tb], tgt[i * tb:(i + 1) * tb]
+        last["batch"] = steps.extract_train_batch(pts, q[lo:hi], n,
+                                                  gt[lo:hi], draws)
+        return steps.train_step(last["batch"])[0]
+
+    last = {}
+    dists = query_batch(0)
+    real_tail, real_torch = pn.pooled_tail_reductions, pn.torch
+    if replay is not None:
+        pn.pooled_tail_reductions = replay
+    if relu is not None:
+        pn.torch = _TorchWithRelu(torch, relu)
+    try:
+        losses = train_step(0)
+    finally:
+        pn.pooled_tail_reductions, pn.torch = real_tail, real_torch
+    torch.cuda.synchronize()
+    return dists, losses, last.pop("batch"), query_batch, train_step
+
+
+def _tp_worker(rank: str, world: str, work: str) -> int:
+    """One rank of phase 13 (``chip_smoke.py --tp-rank R W DIR``): joins the
+    gloo group through the ``file://`` store in DIR, lays the ranks out as
+    the job's grid, partitions the vanilla model over its model axis, runs
+    the checked query batch and train step (kernel call sites, arg
+    indices, relu near-ties, launches), times TP_TIMED of each and their all-reduces, runs
+    one of each in the bf16 modes, holds every kernel to its plain version
+    at this rank's column-slice call sites, and saves what it saw to
+    DIR/rank<R>.pt."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK="0")
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+    from points2surf_tpu_torch.parallel import (
+        distributed, gather_full, make_mesh, partition_params, replicate)
+    from points2surf_tpu_torch.parallel.sharding import sharded_names
+
+    job = torch.load(os.path.join(work, "job.pt"), weights_only=False)
+    device = torch.device(job["device"])
+    check(distributed.initialize(backend="gloo",
+                                 init_method="file://" + os.path.join(
+                                     work, "store")),
+          "initialize() did not join the group")
+    grid = make_mesh(data=job["data"], model=job["model"])
+    r = distributed.rank()
+    model = _tp_model(torch)
+    model.load_state_dict(job["state"])
+    partition_params(model, grid, min_dim=TP_MIN_DIM)
+    model = replicate(model.to(device))
+    res = {"index": (grid.data_index, grid.model_index),
+           "shards": sorted(sharded_names(model))}
+    kernels = (chain_head, chain_pool, pooled_tail_reductions)
+
+    # the checked query batch and train step, the kernels' call sites and
+    # the tails' arg indices recorded
+    _zero_launches(*kernels)
+    ties = []
+    with _Recorder(pn) as sites, _ArgRecorder(pn) as args:
+        dists, losses, _, query_batch, train_step = _tp_runs(
+            torch, device, job, model, mesh=grid,
+            relu=_relu_ties_recorder(torch, ties))
+    res["query"], res["losses"], res["args"] = dists.cpu(), losses.cpu(), \
+        args.args
+    res["relu_ties"] = ties
+    res["checked_launches"] = (chain_head.launches, chain_pool.launches,
+                               pooled_tail_reductions.launches)
+    # every model rank gathers the gradients whole; rank 0 keeps them
+    grads = gather_full(model, grid, {k: p.grad for k, p in
+                                      model.named_parameters()})
+    res["grads"] = {k: v.cpu() for k, v in grads.items()} if r == 0 else None
+
+    # ms per query batch and per train step, as they run and with a
+    # synchronize and the host clock around each all-reduce
+    real = torch.distributed.all_reduce
+    spent = {}
+
+    def timed(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret = real(t, *a, **k)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["n"] += 1
+        return ret
+
+    for what, fn in (("query", query_batch), ("step", train_step)):
+        for instrument in (False, True):
+            spent.update(s=0.0, n=0)
+            distributed.barrier("timed " + what)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if instrument:
+                torch.distributed.all_reduce = timed
+            try:
+                for i in range(1, 1 + TP_TIMED):
+                    fn(i)
+                torch.cuda.synchronize()
+            finally:
+                torch.distributed.all_reduce = real
+            key = what + ("_instrumented" if instrument else "")
+            res[key + "_s"] = (time.perf_counter() - t0) / TP_TIMED
+        res[what + "_allreduce_s"] = spent["s"] / TP_TIMED
+        res[what + "_allreduce_calls"] = spent["n"] / TP_TIMED
+    res["launches"] = (chain_head.launches, chain_pool.launches,
+                       pooled_tail_reductions.launches)
+
+    # the bf16 modes: one query batch and one train step
+    with _Recorder(pn) as bsites:
+        old = {k: os.environ.get(k) for k in BF16_ENV.values()}
+        os.environ.update({k: "default" for k in BF16_ENV.values()})
+        try:
+            query_batch(1 + TP_TIMED)
+            train_step(1 + TP_TIMED)
+            torch.cuda.synchronize()
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+    res["bf16_launches"] = (chain_pool.launches_fused_bf16,
+                            pooled_tail_reductions.launches_bf16,
+                            chain_head.launches_bf16,
+                            chain_pool.launches_bf16)
+
+    # each kernel against its plain version at this rank's column-slice
+    # call sites, in both modes
+    tag = f"tp {grid.data}x{grid.model} rank {r}"
+    res["err"] = _driver_sites_check(torch, sites, tag)
+    res["err"]["chain_fused"] = _fused_sites_check(torch, bsites, tag)
+    worst = 0.0
+    for (shape, cout), (x, w, b) in sorted(bsites.tail.items()):
+        e, bad = _bf16_tail_check(torch, x, w, b, "pooled_tail_bf16")
+        print(f"[{tag}] bf16 call site B={shape[0]} n={shape[1]} "
+              f"128->{cout}: pooled_tail_bf16 max_abs_err {e:.3e}, {bad} "
+              f"outside")
+        check(bad == 0, f"pooled_tail_bf16 disagrees with its plain version "
+                        f"at {shape}")
+        worst = max(worst, e)
+    res["err"]["pooled_tail_bf16"] = worst
+    res["sites"] = (sorted(k[:2] + k[3:] for k in sites.chain),
+                    sorted(sites.tail), sorted(k[:2] + k[3:]
+                                               for k in bsites.chain),
+                    sorted(bsites.tail))
+    torch.save(res, os.path.join(work, f"rank{r}.pt"))
+    distributed.barrier("done")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_float64_grads(torch, device, model, batch, queue, relu):
+    """The one-process step's gradients in float64 on the card (phase 5's
+    reference): ``model`` (whole, on the CPU) and the one-process float32
+    step's extracted ``batch`` in float64, the tails' plain version taking
+    the grid's arg indices from ``queue`` and the relus the grid's
+    near-tie decisions (``relu``)."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions_reference)
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    f64 = torch.float64
+    m = copy.deepcopy(model).to(device=device, dtype=f64)
+    steps = make_train_step(m, OUTPUTS, lr=0.01, momentum=0.9,
+                            patch_cfg=_train_cfg())
+    stats = {"args": 0, "own_differs": 0, "bad": 0}
+    replay = _replaying_tail(torch, pooled_tail_reductions_reference,
+                             list(queue), stats)
+    real, real_torch = pn.pooled_tail_reductions, pn.torch
+    pn.pooled_tail_reductions = replay
+    pn.torch = _TorchWithRelu(torch, relu)
+    try:
+        steps.train_step({k: v.to(f64) if v.is_floating_point() else v
+                          for k, v in batch.items()})
+    finally:
+        pn.pooled_tail_reductions, pn.torch = real, real_torch
+    check(not replay.queue and stats["bad"] == 0,
+          "the float64 step's tails do not take the grid's arg indices")
+    return {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+
+def _tp_grid(torch, np, device, tmp, card, pts_pad, n, queries, data,
+             model_size, tb, qb):
+    """One grid of phase 13: its ranks, then the one-process query and
+    step from the same state and draws (the step takes the grid's arg
+    indices where each is an arg of its own values, and its relu decisions
+    at its near-ties), and the float64 step alike. Returns the summed
+    launches and the kernels' max errors."""
+    import points2surf_tpu_torch.models.pointnet as pn
+    from points2surf_tpu_torch.models.pointnet import BN, PLinear
+
+    world = data * model_size
+    tag = f"tp {data}x{model_size}"
+    work = os.path.join(tmp, f"tp_{data}x{model_size}")
+    os.makedirs(work)
+    model = _tp_model(torch)
+    rs = np.random.RandomState(SEED + 13)
+    n_timed = 1 + TP_TIMED + 1
+    job = {"device": str(device), "data": data, "model": model_size,
+           "state": model.state_dict(), "pts": torch.from_numpy(pts_pad),
+           "n": n, "query_batch": qb, "train_batch": tb,
+           "queries": torch.from_numpy(queries[:qb * n_timed]),
+           "train_q": torch.from_numpy(queries[-tb * n_timed:]),
+           "train_gt": torch.from_numpy((rs.randn(tb * n_timed) * 0.05)
+                                        .astype(np.float32))}
+    torch.save(job, os.path.join(work, "job.pt"))
+    torch.cuda.empty_cache()
+    _run_ranks(work, world, flag="--tp-rank", phase=13, tag=tag)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    check([r_["index"] for r_ in ranks] == [(d, m) for d in range(data)
+                                           for m in range(model_size)],
+          f"{tag}: ranks not laid out as (data, model)")
+    want = sorted(f"{name}.{leaf}" for name, mod in model.named_modules()
+                  if isinstance(mod, (PLinear, BN))
+                  and mod.weight.shape[0] >= TP_MIN_DIM
+                  for leaf in ("weight", "bias") + (
+                      ("running_mean", "running_var")
+                      if isinstance(mod, BN) else ()))
+    check(all(r_["shards"] == want for r_ in ranks),
+          f"{tag}: the ranks' column blocks are not the rule's")
+
+    # launches: 5 chains per fp32 forward (chain_head and chain_pool) and 5
+    # tails per fp32 step, over the checked and the 2 x TP_TIMED timed
+    # runs; in the bf16 modes 5 chain_fused and 5 pooled_tail_bf16 and no
+    # launch of the split pair
+    runs = 1 + 2 * TP_TIMED
+    for r_ in ranks:
+        check(r_["checked_launches"] == (5, 5, 5)
+              and r_["launches"] == (5 * runs,) * 3
+              and r_["bf16_launches"] == (5, 5, 0, 0),
+              f"{tag}: launches {r_['checked_launches']} / "
+              f"{r_['launches']} / bf16 {r_['bf16_launches']}, not 5 per "
+              f"forward and step")
+        check(r_["sites"] == ranks[0]["sites"]
+              and all(k[-1] == NET // model_size for k in
+                      r_["sites"][0] + r_["sites"][1] + r_["sites"][2]
+                      + r_["sites"][3]),
+              f"{tag}: the kernels did not run on {NET} / {model_size} "
+              f"columns: {r_['sites']}")
+    print(f"[{tag}] kernel call sites per rank (B, n, [Cin,] columns): "
+          f"fp32 chains {ranks[0]['sites'][0]}, tails {ranks[0]['sites'][1]}"
+          f"; bf16 chains {ranks[0]['sites'][2]}, tails "
+          f"{ranks[0]['sites'][3]}")
+
+    # the one-process run on the whole model from the same state and draws,
+    # taking the grid's max-pool args and relu near-tie decisions
+    queue = []
+    for j in range(len(ranks[0]["args"])):
+        queue.append(tuple(torch.cat([torch.cat(
+            [ranks[d * model_size + m]["args"][j][a]
+             for m in range(model_size)], dim=1) for d in range(data)])
+            for a in (0, 1)))
+    ties = [r_["relu_ties"] for r_ in ranks]
+    n_relu = len(ties[0])
+
+    def relu_replay():
+        stats = {"ties": 0, "differs": 0, "bad": 0, "dz": 0.0}
+        return _relu_ties_replay(torch, np, ties, model_size, stats), stats
+
+    def one_process(relu):
+        stats = {"args": 0, "own_differs": 0, "bad": 0}
+        whole = copy.deepcopy(model).to(device)
+        replay = _replaying_tail(torch, pn.pooled_tail_reductions,
+                                 list(queue), stats)
+        out = _tp_runs(torch, device, job, whole, replay=replay, relu=relu)
+        check(not replay.queue and stats["bad"] == 0,
+              f"{tag}: a rank's arg index is not an arg of the one-process "
+              f"values, or the runs made different numbers of tail calls")
+        grads = {k: p.grad.cpu() for k, p in whole.named_parameters()}
+        return out[:3], grads, stats
+
+    relu, relu_stats = relu_replay()
+    (one_q, one_losses, batch), grads, stats = one_process(relu)
+    check(all(len(t) == n_relu for t in ties) and relu.done[0] == n_relu
+          and relu_stats["bad"] == 0,
+          f"{tag}: the ranks and the one-process step made {n_relu} / "
+          f"{relu.done[0]} relu calls, or took a decision at no near-tie "
+          f"({relu_stats})")
+    g_q = ranks[0]["query"].to(device)
+    for r_ in ranks[1:]:
+        check(torch.equal(r_["query"], ranks[0]["query"]),
+              f"{tag}: the ranks' query results differ")
+    e = (g_q - one_q).abs()
+    nbad = int((e > 1e-4 + 1e-4 * one_q.abs()).sum())
+    flips = int(((torch.sign(g_q) != torch.sign(one_q))
+                 & (one_q.abs() > 1e-4)).sum())
+    print(f"[{tag}] query batch {qb}: grid vs one process max_abs_err "
+          f"{float(e.max()):.3e}, {nbad} outside rtol / atol 1e-4, sign "
+          f"flips {flips}")
+    check(nbad == 0 and flips == 0, f"{tag}: the query differs from one "
+                                    f"process")
+    per_data = [ranks[d * model_size]["losses"] for d in range(data)]
+    for d in range(data):
+        for m in range(model_size):
+            check(torch.equal(ranks[d * model_size + m]["losses"],
+                              per_data[d]),
+                  f"{tag}: the model ranks of data rank {d} differ in loss")
+    mean = sum(per_data).double() / data
+    want_l = one_losses.double().cpu()
+    err = float(((mean - want_l).abs() / want_l.abs()).max())
+    print(f"[{tag}] train batch {tb}: losses (mean over data ranks) "
+          f"{mean.tolist()} vs one process {want_l.tolist()}: max rel err "
+          f"{err:.3e} (rtol 1e-4); arg indices {stats['args']}, the one "
+          f"process's own differ in {stats['own_differs']} (it took the "
+          f"grid's); relu near-ties (|z| < {RELU_TIE:g}) over {n_relu} "
+          f"relus {relu_stats['ties']}, the one process's own decision "
+          f"differs at {relu_stats['differs']} (it took the grid's; its "
+          f"inputs there within {relu_stats['dz']:.3e} of the grid's)")
+    check(err <= 1e-4, f"{tag}: the losses differ from one process")
+
+    # the gradients gathered whole against the one-process step and both
+    # against the float64 step, each within 1e-3 max|g|; for the record,
+    # the one-process step that decides its relus itself
+    relu64, stats64 = relu_replay()
+    ref = _tp_float64_grads(torch, device, model, batch, queue, relu64)
+    check(relu64.done[0] == n_relu and stats64["bad"] == 0,
+          f"{tag}: the float64 step's relus do not take the grid's "
+          f"near-tie decisions ({stats64})")
+    own = one_process(None)[1]
+    g_max = max(float(g.abs().max()) for g in grads.values())
+
+    def worst(a, b):
+        return max((float((a[k].double() - b[k].double()).abs().max())
+                    / g_max, k) for k in b)
+
+    got = ranks[0]["grads"]
+    w_one, w_64, w_one64, w_own = (worst(got, grads), worst(got, ref),
+                                   worst(grads, ref), worst(own, grads))
+    print(f"[{tag}] gradients of {len(grads)} tensors gathered whole, worst "
+          f"max|err| / max|g| (gate 1e-3): against one process "
+          f"{w_one[0]:.3e} ({w_one[1]}), against the float64 step "
+          f"{w_64[0]:.3e} ({w_64[1]}); the one process against the float64 "
+          f"step {w_one64[0]:.3e} ({w_one64[1]}; the float64 step's own "
+          f"relu decisions differ at {stats64['differs']} near-ties). Not "
+          f"gated: the one process deciding its own relus is {w_own[0]:.3e} "
+          f"({w_own[1]}) from the one that takes the grid's")
+    check(max(w_one[0], w_64[0], w_one64[0]) <= 1e-3,
+          f"{tag}: the gathered gradients differ from one process or from "
+          f"the float64 step")
+
+    q_ms = [1e3 * r_["query_s"] for r_ in ranks]
+    s_ms = [1e3 * r_["step_s"] for r_ in ranks]
+    print(f"[{tag}] {world} gloo ranks on one card ({card}), "
+          f"{TP_TIMED} timed each: ms per query batch of {qb} "
+          f"{q_ms}, per train step of {tb} {s_ms} (host clock); all-reduces "
+          f"per query batch {[r_['query_allreduce_calls'] for r_ in ranks]}"
+          f", per step {[r_['step_allreduce_calls'] for r_ in ranks]}; "
+          f"their share of an instrumented query batch "
+          f"{[r_['query_allreduce_s'] / r_['query_instrumented_s'] for r_ in ranks]}"
+          f", of a step "
+          f"{[r_['step_allreduce_s'] / r_['step_instrumented_s'] for r_ in ranks]}"
+          f" ({[1e3 * r_['step_allreduce_s'] for r_ in ranks]} ms per step)."
+          f" One card shared by {world} processes: not a scaling result")
+    launches = {"chain_head": sum(r_["launches"][0] for r_ in ranks),
+                "chain_pool": sum(r_["launches"][1] for r_ in ranks),
+                "pooled_tail": sum(r_["launches"][2] for r_ in ranks),
+                "chain_fused_bf16": sum(r_["bf16_launches"][0]
+                                        for r_ in ranks),
+                "pooled_tail_bf16": sum(r_["bf16_launches"][1]
+                                        for r_ in ranks)}
+    err = {k: max(r_["err"][k] for r_ in ranks) for k in ranks[0]["err"]}
+    return launches, err
+
+
+def phase_tp(torch, np, device, tmp, card, pts_pad, n, queries):
+    """Phase 13: tensor parallelism (``parallel/sharding.py``). Each grid of
+    TP_GRIDS as gloo ranks sharing the card; the kernels on the ranks'
+    column slices; the query and the step against one process."""
+    t0 = time.perf_counter()
+    launches, err = {}, {}
+    for data, model_size, tb, qb in TP_GRIDS:
+        t_grid = time.perf_counter()
+        got, e = _tp_grid(torch, np, device, tmp, card, pts_pad, n, queries,
+                          data, model_size, tb, qb)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in e.items():
+            err[k] = max(err.get(k, 0.0), v)
+        print(f"[tp {data}x{model_size}] took "
+              f"{time.perf_counter() - t_grid:.1f} s")
+    print(f"[tp] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "err": err}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-rank"]:
         return _parallel_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return _tp_worker(*sys.argv[2:5])
     try:
         import numpy as np
         import torch
@@ -3642,6 +4193,7 @@ def main() -> int:
         gen_launches = phase_datagen(torch, np, device, tmp, card)
         par = phase_parallel(torch, np, device, model, pts_pad, n, queries,
                              drv, tmp, card)
+        tp = phase_tp(torch, np, device, tmp, card, pts_pad, n, queries)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}; "
           f"mlp_maxpool launches on the query, train and driver paths: "
           f"{mlp_launches} "
@@ -3667,7 +4219,8 @@ def main() -> int:
     # their train steps and their shares of the evaluator; each counted
     # from 0 just before it), launches_by_path splits them. max_abs_err
     # takes phase 10's call sites (n = 1200 and 75, ball mode) and phase
-    # 12's (each rank's rows) too.
+    # 12's (each rank's rows) and phase 13's (each rank's column slice, in
+    # both modes) too; "tp" counts phase 13's ranks, summed.
     dl = drv["launches"]
 
     def cli_count(name):
@@ -3679,18 +4232,21 @@ def main() -> int:
                        "driver": dl["chain_head"],
                        "ball_query": ball["launches"]["chain_head"],
                        "cli": cli_count("chain_head"),
-                       "parallel_eval": par["eval_launches"]["chain_head"]},
+                       "parallel_eval": par["eval_launches"]["chain_head"],
+                       "tp": tp["launches"]["chain_head"]},
         "chain_pool": {"query": launches["chain_pool"],
                        "mesh": mesh_launches["chain_pool"],
                        "driver": dl["chain_pool"],
                        "ball_query": ball["launches"]["chain_pool"],
                        "cli": cli_count("chain_pool"),
-                       "parallel_eval": par["eval_launches"]["chain_pool"]},
+                       "parallel_eval": par["eval_launches"]["chain_pool"],
+                       "tp": tp["launches"]["chain_pool"]},
         "pooled_tail": {"train": tail_launches, "driver": dl["pooled_tail"],
                         "uniform_train": uni["launches"],
                         "cli": cli_count("pooled_tail_reductions"),
                         "datagen_train": gen_launches,
-                        "parallel": par["launches"]},
+                        "parallel": par["launches"],
+                        "tp": tp["launches"]["pooled_tail"]},
         "mlp_maxpool": {"all": mlp_launches},
         "chain_head_bf16": {
             "query": bfl["query"]["chain_head"][1],
@@ -3700,25 +4256,27 @@ def main() -> int:
             "reconstruction": bfl["reconstruction"]["chain_pool"][1]},
         "chain_fused_bf16": {
             "query": bfl["query"]["chain_fused"],
-            "reconstruction": bfl["reconstruction"]["chain_fused"]},
+            "reconstruction": bfl["reconstruction"]["chain_fused"],
+            "tp": tp["launches"]["chain_fused_bf16"]},
         "pooled_tail_bf16": {
-            "train": bfl["train"]["pooled_tail_reductions"][1]},
+            "train": bfl["train"]["pooled_tail_reductions"][1],
+            "tp": tp["launches"]["pooled_tail_bf16"]},
     }
     entries = (
         ("chain_head", "chain_head.cu", "chain_kernel.py:187",
          max(kern["err"]["chain_head"], drv["err"]["chain_head"],
              opt_err["chain_head"], ball["err"]["chain_head"],
-             par["err"]["chain_head"]), q["head"],
+             par["err"]["chain_head"], tp["err"]["chain_head"]), q["head"],
          q["head_plain"], *q["head_cost"]),
         ("chain_pool", "chain_pool.cu", "chain_kernel.py:187",
          max(kern["err"]["chain_pool"], drv["err"]["chain_pool"],
              opt_err["chain_pool"], ball["err"]["chain_pool"],
-             par["err"]["chain_pool"]), q["tail"],
+             par["err"]["chain_pool"], tp["err"]["chain_pool"]), q["tail"],
          q["tail_plain"], *q["tail_cost"]),
         ("pooled_tail", "pooled_tail.cu", "train_tail.py:138",
          max(tail["max_abs_err"], drv["err"]["pooled_tail"],
              opt_err["pooled_tail"], ball["err"]["pooled_tail"],
-             par["err"]["pooled_tail"]), tail["ms"],
+             par["err"]["pooled_tail"], tp["err"]["pooled_tail"]), tail["ms"],
          tail["plain_ms"], *tail["cost"]),
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
@@ -3730,10 +4288,12 @@ def main() -> int:
          bf["err"]["chain_pool"], bf["tail"], bf["tail_plain"],
          *bf["tail_cost"]),
         ("chain_fused_bf16", "chain_fused.cu", "chain_kernel.py:187",
-         max(bf["err"]["chain_fused"], fused_site_err), bf["chain"],
+         max(bf["err"]["chain_fused"], fused_site_err,
+             tp["err"]["chain_fused"]), bf["chain"],
          bf["chain_plain"], *bf["fused_cost"]),
         ("pooled_tail_bf16", "pooled_tail_bf16.cu", "train_tail.py:138",
-         max(bf["err"]["pooled_tail"], tail_site_err), bf["tail_ms"],
+         max(bf["err"]["pooled_tail"], tail_site_err,
+             tp["err"]["pooled_tail_bf16"]), bf["tail_ms"],
          bf["tail_plain_ms"], *bf["pooled_tail_cost"]),
     )
     kernels = []

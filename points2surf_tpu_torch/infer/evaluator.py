@@ -154,10 +154,13 @@ def points_to_surf_eval(eval_opt, device="cuda", shard=None):
     ``device`` ("cuda" unless the caller asks for the CPU).
 
     ``shard=(index, count)`` takes the shapes whose position in the dataset
-    is ``index`` modulo ``count``; None takes this rank's share of the
-    process group (every shape without one)."""
+    is ``index`` modulo ``count``; None takes this data rank's share of
+    the process group (every shape without one). The model ranks of a data
+    rank evaluate the same shapes, and only model rank 0 writes them."""
     device = require_cuda(device)
-    proc, n_proc = shard or (distributed.rank(), distributed.world_size())
+    proc, n_proc = shard or (distributed.data_rank(),
+                             distributed.data_size())
+    writes = distributed.model_rank() == 0
     models = eval_opt.models.split()
 
     for model_name in models:
@@ -248,7 +251,8 @@ def points_to_surf_eval(eval_opt, device="cuda", shard=None):
                     pending.append(query_fn(pts_dev, q, n_valid, draws,
                                             small_cloud=small))
                 dists = drain_batched_results(pending, len(queries))
-
+                if not writes:
+                    continue
                 save_futures.append(saver.submit(
                     _save_shape, name, queries, dists, eval_opt,
                     model_out_dir

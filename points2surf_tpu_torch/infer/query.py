@@ -10,7 +10,10 @@ import numpy as np
 import torch
 
 from points2surf_tpu_torch.models import losses as L
-from points2surf_tpu_torch.ops.patches import PatchConfig, extract_patches
+from points2surf_tpu_torch.ops.patches import (
+    PatchConfig, draw_batch, extract_patches)
+from points2surf_tpu_torch.parallel.distributed import (
+    gather_blocks, installed)
 
 
 def drain_batched_results(pending, n_total: int) -> np.ndarray:
@@ -47,7 +50,8 @@ def postprocess_sdf(pred: torch.Tensor, radius: torch.Tensor, outputs,
 
 def make_sdf_query_fn(model: torch.nn.Module, outputs,
                       patch_cfg: PatchConfig, fixed_radius: bool,
-                      augment: bool = False, coherent: bool = True):
+                      augment: bool = False, coherent: bool = True,
+                      mesh=None):
     """Returns ``fn(points, queries, n_valid, rng, small_cloud=False)`` ->
     (B,) signed distances. ``rng`` is a ``torch.Generator`` on the points'
     device or the batch's ``SubsampleDraws`` (``TrainDraws`` with
@@ -56,6 +60,16 @@ def make_sdf_query_fn(model: torch.nn.Module, outputs,
     ``augment`` extracts as in training (full-cloud selection and a random
     rotation per row, the reference's augmentation of every pass that is not
     a reconstruction) and runs the eval forward on it.
+
+    With ``mesh`` (the grid ``parallel.mesh.make_mesh`` returned), the
+    multi-rank sweep of the JAX package's ``mesh`` argument: each data rank
+    extracts
+    and evaluates its rows of the batch (its rows of the batch's draws),
+    the forward column-sharded when ``model`` is
+    (``parallel/sharding.partition_params``), and every rank returns the
+    whole batch's distances. A batch that does not divide the data axis,
+    or a ball-mode one (its tiles' priorities belong to the whole batch),
+    runs whole on every rank, as JAX replicates what it cannot shard.
     """
     outputs = tuple(outputs)
     model.eval()
@@ -69,4 +83,24 @@ def make_sdf_query_fn(model: torch.nn.Module, outputs,
         return postprocess_sdf(pred, batch["patch_radius_ms"], outputs,
                                fixed_radius)
 
-    return query
+    if mesh is None or installed(mesh).data == 1:
+        return query
+
+    @torch.inference_mode()
+    def sharded_query(points, queries, n_valid, rng,
+                      small_cloud: bool = False):
+        b = queries.shape[0]
+        if b % mesh.data or not patch_cfg.knn_mode:
+            return query(points, queries, n_valid, rng, small_cloud)
+        if isinstance(rng, torch.Generator):
+            rng = draw_batch(rng, b, points.shape[0], patch_cfg, small_cloud,
+                             train=augment, n_valid=n_valid)
+        per = b // mesh.data
+        lo, hi = mesh.data_index * per, (mesh.data_index + 1) * per
+        mine = query(points, queries[lo:hi], n_valid,
+                     rng.rows(lo, hi, chunk=patch_cfg.query_chunk),
+                     small_cloud)
+        return gather_blocks(mine, 0, mesh.data_group, mesh.data_index,
+                             mesh.data)
+
+    return sharded_query

@@ -13,6 +13,10 @@ Variants (mutually exclusive, reference points_to_surf_model.py:250-267):
 ``dtype=torch.bfloat16`` runs the activations in bf16 with fp32 parameters
 (the JAX package's ``dtype``; ``models/pointnet.py``); the output is then
 bf16, and the train step casts it to fp32 for the losses.
+
+On a grid with a ``model`` axis (``parallel/sharding.partition_params``)
+the head's wide layers run column-parallel as the encoders' do
+(``models/pointnet._dense``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 from torch import nn
 
 from points2surf_tpu_torch.models.pointnet import (
-    BN, PLinear, PointNetFeat, QSTN, set_act_dtype)
+    BN, PLinear, PointNetFeat, QSTN, _dense, set_act_dtype)
 from points2surf_tpu_torch.ops import geometry
 
 
@@ -76,21 +80,22 @@ class PointsToSurfModel(nn.Module):
         if self.single_transformer:
             both = torch.cat([patch, sub], dim=1)
             feat = self.feat_local_global(both)[0]
-            h = torch.relu(self.bn1_local_global(self.fc1_local_global(feat)))
+            h = _dense(feat, self.fc1_local_global, self.bn1_local_global,
+                       act_relu=True)
         else:
             if self.use_point_stn and self.shared_transformation:
                 trans, _ = self.point_stn(torch.cat([patch, sub], dim=1))
                 sub = geometry.transform_points(sub, trans)
                 patch = geometry.transform_points(patch, trans)
             g, trans_global, _, _ = self.feat_global(sub)
-            g = torch.relu(self.bn1_global(self.fc1_global(g)))
+            g = _dense(g, self.fc1_global, self.bn1_global, act_relu=True)
             if self.use_point_stn and not self.shared_transformation:
                 # rotate the local patch like the global sub-sample (:337-339)
                 patch = geometry.transform_points(patch, trans_global)
             l = self.feat_local(patch)[0]
-            l = torch.relu(self.bn1_local(self.fc1_local(l)))
+            l = _dense(l, self.fc1_local, self.bn1_local, act_relu=True)
             h = torch.cat([l, g], dim=1)
 
-        h = torch.relu(self.bn2(self.fc2(h)))
-        h = torch.relu(self.bn3(self.fc3(h)))
-        return self.fc4(h)
+        h = _dense(h, self.fc2, self.bn2, act_relu=True)
+        h = _dense(h, self.fc3, self.bn3, act_relu=True)
+        return _dense(h, self.fc4)

@@ -44,6 +44,20 @@ wrappers). The running statistics update with the global values and stay
 equal on every rank. In a world of one nothing changes and no collective
 is launched.
 
+**Tensor parallelism** (``parallel/sharding.py``, a grid with a ``model``
+axis): a ``PLinear`` or ``BN`` that ``partition_params`` sharded holds its
+model rank's column block (``layer.sharded``) and computes only
+its columns: the covariance-form layers, the pooled tails and the eval
+chains on the slice (the ``pooled_tail`` and ``chain_pool`` kernels run
+unchanged on the block's W3 columns, a3 / c3 in eval and the bias in
+training: their pools and statistics are per column), the FC layers with
+their BatchNorms. :func:`_column_parallel` puts
+``parallel.distributed.sum_input_grad`` on the layer's replicated input and
+``gather_columns`` on its output, so every layer after it sees the full
+width and every replicated layer the whole gradient. An eval chain whose
+first two layers are sharded too (a net narrow enough for ``min_dim``)
+gathers their folded weights, as layers 1-2 run whole in the kernel.
+
 **Activation dtype** (``dtype=torch.bfloat16``, the JAX package's
 ``--train_dtype`` / ``--eval_dtype bfloat16``; independent of the operand
 modes above, which keep fp32 activations). As flax computes with
@@ -75,7 +89,8 @@ from points2surf_tpu_torch.ops import geometry
 from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool, fold_conv_bn
 from points2surf_tpu_torch.ops.kernels.pooled_tail import (
     pooled_tail_reductions)
-from points2surf_tpu_torch.parallel.distributed import global_sum, world_size
+from points2surf_tpu_torch.parallel.distributed import (
+    data_size, gather_columns, global_sum, sum_input_grad)
 
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running statistic
 # elements of the (rows, n, C) fp32 temporaries of one bf16 eval-tail chunk
@@ -92,6 +107,9 @@ class PLinear(nn.Module):
     cast to it."""
 
     act_dtype: torch.dtype | None = None
+    # True where the layer holds its model rank's column block of the
+    # installed grid (parallel/sharding.partition_params)
+    sharded = False
 
     def __init__(self, in_features: int, out_features: int, conv: bool):
         super().__init__()
@@ -121,9 +139,11 @@ class BN(nn.BatchNorm1d):
     ``0.9 r + 0.1 batch`` (stock ``BatchNorm1d`` would update the running
     variance with the unbiased one). With ``act_dtype`` (flax's
     ``BatchNorm(dtype=...)``) the statistics and the normalization stay
-    fp32 and the output is cast to it."""
+    fp32 and the output is cast to it. A sharded BN (``sharded``, as
+    ``PLinear``) holds its column block of every leaf."""
 
     act_dtype: torch.dtype | None = None
+    sharded = False
 
     def eval_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(a, c) with ``bn(y) == y * a + c`` under the running statistics."""
@@ -170,10 +190,10 @@ def set_act_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
 
 def _global_means(means, count: int):
     """Per-channel means over this rank's ``count`` rows -> the means over
-    every rank's rows, in one collective that carries the gradient (the
-    counts are summed with them). A world of one returns ``means``
+    every data rank's rows, in one collective that carries the gradient (the
+    counts are summed with them). One data rank returns ``means``
     unchanged."""
-    if world_size() == 1:
+    if data_size() == 1:
         return tuple(means)
     n = float(count)
     flat = global_sum(torch.cat([m.reshape(-1) * n for m in means]
@@ -186,14 +206,70 @@ def _global_means(means, count: int):
     return tuple(out)
 
 
+def _column_parallel(fn, x, layer: PLinear):
+    """``fn(x)``, where ``fn`` computes the output columns of ``layer`` (and
+    of its BatchNorm and activation): whole for a whole layer; for a
+    sharded one its column block, gathered over the model ranks, with the
+    cotangent of the replicated input ``x`` summed over them."""
+    if not layer.sharded:
+        return fn(x)
+    return gather_columns(fn(sum_input_grad(x)))
+
+
 def _chain_layer(conv: PLinear, bn: BN):
-    """Folded (W, a, c) triple of one conv + eval-BN layer."""
+    """Folded (W, a, c) triple of one conv + eval-BN layer (its column
+    block for a sharded layer)."""
     a, c = fold_conv_bn(conv.bias, bn.weight, bn.bias, bn.running_mean,
                         bn.running_var, bn.eps)
     return conv.kernel().contiguous(), a, c
 
 
+def _chain_layer_full(conv: PLinear, bn: BN):
+    """:func:`_chain_layer` of the whole layer: a sharded layer's blocks
+    gathered over the model ranks (layers 1-2 run whole in the kernel)."""
+    layer = _chain_layer(conv, bn)
+    if not conv.sharded:
+        return layer
+    return tuple(gather_columns(t).contiguous() for t in layer)
+
+
+def _eval_chain(x, convs, bns, sym_op: str, act_relu: bool):
+    """Eval chain conv1 -> bn1 -> relu -> conv2 -> bn2 -> relu -> conv3 ->
+    bn3 -> (relu) -> pool as one ``chain_pool`` call on folded triples; for
+    a sharded conv3 on its column block (the kernel on the slice) and
+    gathered."""
+    head = (_chain_layer_full(convs[0], bns[0]),
+            _chain_layer_full(convs[1], bns[1]))
+
+    def block(h):
+        out = chain_pool(h.contiguous(),
+                         head + (_chain_layer(convs[2], bns[2]),),
+                         sym_op=sym_op)
+        return torch.relu(out) if act_relu else out
+
+    return _column_parallel(block, x, convs[2])
+
+
+def _dense(x, fc: PLinear, bn: BN | None = None, act_relu: bool = False):
+    """fc -> (bn) -> (relu) on channels-last features, column-parallel when
+    ``fc`` is sharded (its BatchNorm then is too)."""
+    def block(h):
+        h = fc(h)
+        if bn is not None:
+            h = bn(h)
+        return torch.relu(h) if act_relu else h
+
+    return _column_parallel(block, x, fc)
+
+
 def _conv_bn_relu(x, conv: PLinear, bn: BN):
+    """:func:`_conv_bn_relu_block`, column-parallel when ``conv`` is
+    sharded."""
+    return _column_parallel(lambda h: _conv_bn_relu_block(h, conv, bn), x,
+                            conv)
+
+
+def _conv_bn_relu_block(x, conv: PLinear, bn: BN):
     """Pointwise linear -> BatchNorm -> ReLU on (B, n, Cin). In fp32 train
     mode the covariance form of the JAX package (``_conv_bn_relu``): the
     batch statistics of ``y = x @ W + b`` are ``mean(x) @ W + b`` and
@@ -296,6 +372,14 @@ class _LinearPoolReductions(torch.autograd.Function):
 
 
 def _pooled_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
+    """:func:`_pooled_tail_block`, on the column slice when ``conv`` is
+    sharded (the kernel runs on the block's columns)."""
+    return _column_parallel(
+        lambda h: _pooled_tail_block(h, conv, bn, sym_op, act_relu), x, conv)
+
+
+def _pooled_tail_block(x, conv: PLinear, bn: BN, sym_op: str,
+                       act_relu: bool):
     """Train-mode conv3 -> bn3 -> (relu) -> pool over points. BN with batch
     statistics is a per-channel affine, and relu and the pools commute with
     it: the max pool takes max_n c where the scale is >= 0 and min_n c
@@ -305,7 +389,7 @@ def _pooled_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
     out = _LinearPoolReductions.apply(
         x.contiguous(), conv.kernel().contiguous(), conv.bias, need_minmax, d)
     mean, var = out[-2:]
-    if world_size() > 1:  # the global moments from this rank's
+    if data_size() > 1:  # the global moments from this rank's
         mean, sq = _global_means((mean, var + mean * mean),
                                  x.shape[0] * x.shape[1])
         var = sq - mean * mean
@@ -322,6 +406,14 @@ def _pooled_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
 
 
 def _eval_tail(x, conv: PLinear, bn: BN, sym_op: str, act_relu: bool):
+    """:func:`_eval_tail_block`, on the column slice when ``conv`` is
+    sharded."""
+    return _column_parallel(
+        lambda h: _eval_tail_block(h, conv, bn, sym_op, act_relu), x, conv)
+
+
+def _eval_tail_block(x, conv: PLinear, bn: BN, sym_op: str,
+                     act_relu: bool):
     """Eval conv3 -> bn3 -> (relu) -> pool of the literal stack (the JAX
     package's eval ``_pooled_tail``, which bf16 activations take): c = x @ W
     + b in the activation dtype, the running-statistics affine in fp32, the
@@ -394,15 +486,14 @@ class _STNTrunk(nn.Module):
             h = _conv_bn_relu(h, self.conv2, self.bn2)
             h = _pooled_tail(h, self.conv3, self.bn3, "max", act_relu=True)
         elif not literal:
-            layers = (_chain_layer(self.conv1, self.bn1),
-                      _chain_layer(self.conv2, self.bn2),
-                      _chain_layer(self.conv3, self.bn3))
-            h = torch.relu(chain_pool(x.contiguous(), layers, sym_op="max"))
+            h = _eval_chain(x, (self.conv1, self.conv2, self.conv3),
+                            (self.bn1, self.bn2, self.bn3), "max",
+                            act_relu=True)
         else:
             h = _conv_bn_relu(x, self.conv1, self.bn1)
             h = _conv_bn_relu(h, self.conv2, self.bn2)
             if self.num_scales > 1:
-                h = torch.relu(self.bn3(self.conv3(h)))
+                h = _dense(h, self.conv3, self.bn3, act_relu=True)
                 h = _scale_pool(h, self.num_scales)
             elif self.training:
                 h = _pooled_tail(h, self.conv3, self.bn3, "max",
@@ -410,10 +501,10 @@ class _STNTrunk(nn.Module):
             else:
                 h = _eval_tail(h, self.conv3, self.bn3, "max", act_relu=True)
         if self.num_scales > 1:
-            h = torch.relu(self.bn0(self.fc0(h)))
-        h = torch.relu(self.bn4(self.fc1(h)))
-        h = torch.relu(self.bn5(self.fc2(h)))
-        return self.fc3(h)
+            h = _dense(h, self.fc0, self.bn0, act_relu=True)
+        h = _dense(h, self.fc1, self.bn4, act_relu=True)
+        h = _dense(h, self.fc2, self.bn5, act_relu=True)
+        return _dense(h, self.fc3)
 
 
 class STN(_STNTrunk):
@@ -501,18 +592,17 @@ class PointNetFeat(nn.Module):
             h = _pooled_tail(h, self.conv3, self.bn3, self.sym_op,
                              act_relu=False)
         elif not literal:
-            layers = (_chain_layer(self.conv1, self.bn1),
-                      _chain_layer(self.conv2, self.bn2),
-                      _chain_layer(self.conv3, self.bn3))
-            h = chain_pool(h.contiguous(), layers, sym_op=self.sym_op)
+            h = _eval_chain(h, (self.conv1, self.conv2, self.conv3),
+                            (self.bn1, self.bn2, self.bn3), self.sym_op,
+                            act_relu=False)
         else:
             h = _conv_bn_relu(h, self.conv1, self.bn1)
             h = _conv_bn_relu(h, self.conv2, self.bn2)
             if self.num_scales > 1:
                 # the (output_size -> output_size * num_scales) expansion,
                 # then each scale segment pooled (model.py:207-230)
-                h = self.bn3(self.conv3(h))
-                h = self.bn4(self.conv4(torch.relu(h)))
+                h = _dense(h, self.conv3, self.bn3)
+                h = _dense(torch.relu(h), self.conv4, self.bn4)
                 h = _scale_pool(h, self.num_scales, self.sym_op)
             elif self.training:
                 h = _pooled_tail(h, self.conv3, self.bn3, self.sym_op,

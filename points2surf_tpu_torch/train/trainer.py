@@ -127,8 +127,15 @@ class TrainStep:
 
     ``train_step`` is ``forward_loss``, ``backward`` and ``update`` in turn;
     the gradients stay in the parameters' ``.grad`` after it. Under a
-    process group ``backward`` averages them over the ranks (one
-    collective), each rank holding an equal share of the global batch.
+    process group ``backward`` averages them over the data ranks (one
+    collective), each data rank holding an equal share of the global batch.
+
+    On a grid with a ``model`` axis (``parallel/mesh.make_mesh``) the model
+    is partitioned first (``parallel/sharding.partition_params``, then this
+    step's optimizer over its blocks): every model rank of a data rank takes
+    the same rows and the same draws, the column blocks' gradients are
+    complete on their rank (``models/pointnet._column_parallel``), and the
+    mean over the data ranks covers blocks and replicated parameters alike.
     """
 
     def __init__(self, model: torch.nn.Module, outputs, *, lr: float = 0.01,
@@ -167,7 +174,7 @@ class TrainStep:
     def backward(self, losses) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         torch.stack(losses).sum().backward()
-        if distributed.world_size() > 1:
+        if distributed.data_size() > 1:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
             flat = distributed.mean_over_ranks_(
@@ -344,10 +351,10 @@ class Trainer:
         if hi == lo:
             return None  # a ragged tail smaller than the world
         small = self.train_pipe.small_cloud(n_valid)
-        draws = self.train_pipe.draws((hi - lo) * distributed.world_size(),
+        draws = self.train_pipe.draws((hi - lo) * distributed.data_size(),
                                       pts_dev.shape[0], small,
                                       n_valid=n_valid)
-        if distributed.world_size() > 1:
+        if distributed.data_size() > 1:
             draws = draws.rows(lo, hi, chunk=self.patch_cfg.query_chunk)
         q = torch.from_numpy(shape.query_pts[local_inds[lo:hi]]).to(
             self.device)

@@ -65,8 +65,16 @@ def test_port_imports_no_jax():
             "points2surf_tpu_torch.parallel, "
             "points2surf_tpu_torch.parallel.distributed, "
             "points2surf_tpu_torch.parallel.mesh, "
+            "points2surf_tpu_torch.parallel.sharding, "
             "points2surf_tpu_torch.cli.download, "
-            "points2surf_tpu_torch.ops.knn; "
+            "points2surf_tpu_torch.ops.knn, importlib.util\n"
+            # the port's scripts, their top level (imports) run
+            "for n in ('torch_make_oodeval', 'torch_sign_error_report', "
+            "'torch_flood_sweep'):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        n, 'scripts/' + n + '.py')\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'points2surf_tpu.')) or "
             "m == 'points2surf_tpu']; print(bad); sys.exit(bool(bad))")
