@@ -1123,6 +1123,7 @@ def phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n):
         chain_head, chain_pool)
     from points2surf_tpu_torch.ops.marching_cubes import extract_isosurface
     from points2surf_tpu_torch.ops.voxel import grid_query_points
+    from points2surf_tpu_torch.utils import trace
 
     fn = make_sdf_query_fn(model, OUTPUTS, cfg, fixed_radius=False)
     pts_t = torch.from_numpy(pts_pad).to(device)
@@ -1151,11 +1152,11 @@ def phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n):
         ).astype(np.float32) * np.maximum(np.abs(dists), 1e-4)
         t2 = time.perf_counter()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        stats = {}
         q_dev = torch.from_numpy(queries).to(device)
         d_dev = torch.from_numpy(dists).to(device)
         ev[0].record()
-        vol_dev = meshing._build_volume(q_dev, d_dev, nq, *args, 0, stats)
+        with trace.recording() as rec:
+            vol_dev = meshing._build_volume(q_dev, d_dev, nq, *args, 0)
         ev[1].record()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
@@ -1165,7 +1166,8 @@ def phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n):
         t5 = time.perf_counter()
         r = {"total": t5 - t0, "grid": t1 - t0, "sweep": t2 - t1,
              "volume": t3 - t2, "volume_events": ev[0].elapsed_time(ev[1]),
-             "fetch": t4 - t3, "marching": t5 - t4, "rounds": stats["rounds"],
+             "fetch": t4 - t3, "marching": t5 - t4,
+             "rounds": rec["counters"]["volume.rounds"],
              "queries": nq, "batches": len(pending), "verts": len(v),
              "faces": len(f),
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1215,17 +1217,19 @@ def phase_mesh(torch, np, device, cfg, model, pts, pts_pad, n):
     cpu = torch.device("cpu")
     for sf in (0, 4):
         t0 = time.perf_counter()
-        stats_c, stats_g = {}, {}
-        want = meshing._build_volume(torch.from_numpy(queries),
-                                     torch.from_numpy(dists), len(queries),
-                                     *args, sf, stats_c)
+        with trace.recording() as stats_c:
+            want = meshing._build_volume(torch.from_numpy(queries),
+                                         torch.from_numpy(dists),
+                                         len(queries), *args, sf)
         t_cpu = time.perf_counter() - t0
-        got = meshing._build_volume(q_dev, d_dev, len(queries), *args, sf,
-                                    stats_g).to(cpu)
+        with trace.recording() as stats_g:
+            got = meshing._build_volume(q_dev, d_dev, len(queries), *args,
+                                        sf).to(cpu)
         equal = torch.equal(got, want)
         print(f"[mesh] seed_filter {sf}: GPU volume equals the CPU volume bit "
-              f"for bit: {equal} ({stats_g['rounds']} rounds on the GPU, "
-              f"{stats_c['rounds']} on the CPU; CPU build {t_cpu:.2f} s on "
+              f"for bit: {equal} ({stats_g['counters']['volume.rounds']} "
+              f"rounds on the GPU, {stats_c['counters']['volume.rounds']} on "
+              f"the CPU; CPU build {t_cpu:.2f} s on "
               f"{torch.get_num_threads()} threads)")
         check(equal, f"GPU and CPU volumes differ (seed_filter {sf})")
         if sf == 0:

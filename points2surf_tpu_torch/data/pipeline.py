@@ -34,6 +34,7 @@ from points2surf_tpu_torch.ops.patches import (
     draw_batch,
     extract_patches,
 )
+from points2surf_tpu_torch.utils import trace
 
 
 class PatchPipeline:
@@ -72,17 +73,20 @@ class PatchPipeline:
         return n_valid < max(self.cfg.sub_sample_size, 1)
 
     def _extract_run(self, shape_ind: int, local_inds: np.ndarray) -> dict:
-        pts_dev, n_valid = self.store.device_points(shape_ind)
-        shape = self.store.get(shape_ind)
-        queries = torch.from_numpy(shape.query_pts[local_inds]).to(
-            self.store.device)
-        small = self.small_cloud(n_valid)
-        draws = self.draws(len(local_inds), pts_dev.shape[0], small,
-                           n_valid=n_valid)
-        return extract_patches(
-            pts_dev, queries, n_valid, draws, cfg=self.cfg,
-            train=self.augment, small_cloud=small,
-        )
+        with trace.span("data.extract"):
+            pts_dev, n_valid = self.store.device_points(shape_ind)
+            shape = self.store.get(shape_ind)
+            with trace.span("data.upload"), \
+                    trace.blocking(self.store.device):
+                queries = torch.from_numpy(shape.query_pts[local_inds]).to(
+                    self.store.device)
+            small = self.small_cloud(n_valid)
+            draws = self.draws(len(local_inds), pts_dev.shape[0], small,
+                               n_valid=n_valid)
+            return extract_patches(
+                pts_dev, queries, n_valid, draws, cfg=self.cfg,
+                train=self.augment, small_cloud=small,
+            )
 
     def plan(
         self, indices: Iterable[int], batch_size: int
@@ -98,13 +102,17 @@ class PatchPipeline:
         idx = np.fromiter(indices, dtype=np.int64)
         offsets = np.cumsum([0] + self.store.shape_patch_count)
         for start in range(0, len(idx), batch_size):
-            chunk = idx[start : start + batch_size]
-            shape_inds = np.searchsorted(offsets, chunk, side="right") - 1
-            if len(chunk) == batch_size and (shape_inds == shape_inds[0]).all():
-                si = int(shape_inds[0])
-                li = chunk - offsets[si]
-                gt = self.store.get(si).query_dist[li]
-                yield ("single", si, li, gt.astype(np.float32))
+            with trace.span("data.plan"):
+                chunk = idx[start : start + batch_size]
+                shape_inds = np.searchsorted(offsets, chunk, side="right") - 1
+                single = (len(chunk) == batch_size
+                          and (shape_inds == shape_inds[0]).all())
+                if single:
+                    si = int(shape_inds[0])
+                    li = chunk - offsets[si]
+                    gt = self.store.get(si).query_dist[li].astype(np.float32)
+            if single:
+                yield ("single", si, li, gt)
             else:
                 yield ("mixed", self._assemble(chunk, True))
 
@@ -127,43 +135,49 @@ class PatchPipeline:
             yield self._assemble(idx[start : start + batch_size], with_gt)
 
     def _assemble(self, chunk: np.ndarray, with_gt: bool) -> dict:
-        offsets = np.cumsum([0] + self.store.shape_patch_count)
-        shape_inds = np.searchsorted(offsets, chunk, side="right") - 1
-        local_inds = chunk - offsets[shape_inds]
+        with trace.span("data.assemble"):
+            offsets = np.cumsum([0] + self.store.shape_patch_count)
+            shape_inds = np.searchsorted(offsets, chunk, side="right") - 1
+            local_inds = chunk - offsets[shape_inds]
 
-        run_outputs = []
-        take_ids = np.empty(len(chunk), np.int64)
-        gt = np.empty(len(chunk), np.float32) if with_gt else None
-        row_base = 0
-        # group into per-shape runs preserving order of first occurrence
-        for si in _unique_stable(shape_inds):
-            sel = shape_inds == si
-            li = local_inds[sel]
-            run_outputs.append(self._extract_run(int(si), li))
-            take_ids[sel] = row_base + np.arange(len(li))
+            run_outputs = []
+            take_ids = np.empty(len(chunk), np.int64)
+            gt = np.empty(len(chunk), np.float32) if with_gt else None
+            row_base = 0
+            # group into per-shape runs preserving order of first occurrence
+            for si in _unique_stable(shape_inds):
+                sel = shape_inds == si
+                li = local_inds[sel]
+                run_outputs.append(self._extract_run(int(si), li))
+                take_ids[sel] = row_base + np.arange(len(li))
+                if with_gt:
+                    gt[sel] = self.store.get(int(si)).query_dist[li]
+                row_base += len(li)
+
+            if len(run_outputs) == 1:
+                # one run: rows already in order
+                batch = dict(run_outputs[0])
+            else:
+                with trace.span("data.upload"), \
+                        trace.blocking(self.store.device):
+                    take = torch.from_numpy(take_ids).to(self.store.device)
+                batch = {
+                    k: torch.cat([r[k] for r in run_outputs]).index_select(
+                        0, take)
+                    for k in run_outputs[0]
+                }
+
             if with_gt:
-                gt[sel] = self.store.get(int(si)).query_dist[li]
-            row_base += len(li)
-
-        if len(run_outputs) == 1:
-            batch = dict(run_outputs[0])  # one run: rows already in order
-        else:
-            take = torch.from_numpy(take_ids).to(self.store.device)
-            batch = {
-                k: torch.cat([r[k] for r in run_outputs]).index_select(0, take)
-                for k in run_outputs[0]
-            }
-
-        if with_gt:
-            # sign target: 0.0 strictly negative else 1.0
-            # (reference data_loader.py:369-371)
-            dev = self.store.device
-            batch["imp_surf_ms"] = torch.from_numpy(gt).to(dev)
-            batch["imp_surf_magnitude_ms"] = torch.from_numpy(
-                np.abs(gt)).to(dev)
-            batch["imp_surf_dist_sign_ms"] = torch.from_numpy(
-                (gt >= 0.0).astype(np.float32)).to(dev)
-        return batch
+                # sign target: 0.0 strictly negative else 1.0
+                # (reference data_loader.py:369-371)
+                dev = self.store.device
+                with trace.span("data.upload"), trace.blocking(dev, 3):
+                    batch["imp_surf_ms"] = torch.from_numpy(gt).to(dev)
+                    batch["imp_surf_magnitude_ms"] = torch.from_numpy(
+                        np.abs(gt)).to(dev)
+                    batch["imp_surf_dist_sign_ms"] = torch.from_numpy(
+                        (gt >= 0.0).astype(np.float32)).to(dev)
+            return batch
 
 
 def _unique_stable(arr: np.ndarray) -> np.ndarray:

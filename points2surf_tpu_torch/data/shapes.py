@@ -30,7 +30,7 @@ import torch
 
 from points2surf_tpu_torch.device import require_cuda
 from points2surf_tpu_torch.ops import voxel
-from points2surf_tpu_torch.utils import file_utils
+from points2surf_tpu_torch.utils import file_utils, trace
 
 BUCKET = 16384  # point-count padding granularity
 
@@ -182,11 +182,13 @@ class ShapeStore:
         self._used_at[index] = self._use_counter
         if index in self._device_cache:
             return self._device_cache[index]
-        shape = self.get(index)
-        n = shape.n_points
-        padded = np.zeros((bucket_size(n), 3), np.float32)
-        padded[:n] = shape.pts
-        arr = torch.from_numpy(padded).to(self.device)
+        with trace.span("data.cloud_upload"):
+            shape = self.get(index)
+            n = shape.n_points
+            padded = np.zeros((bucket_size(n), 3), np.float32)
+            padded[:n] = shape.pts
+            with trace.blocking(self.device):
+                arr = torch.from_numpy(padded).to(self.device)
         self._evict(self._device_cache)
         self._device_cache[index] = (arr, n)
         return arr, n

@@ -33,7 +33,7 @@ from points2surf_tpu_torch.ops.patches import PatchConfig, draw_batch
 from points2surf_tpu_torch.parallel import distributed
 from points2surf_tpu_torch.train import checkpoint as ckpt
 from points2surf_tpu_torch.train.trainer import build_model, output_spec
-from points2surf_tpu_torch.utils import file_utils, mesh_io
+from points2surf_tpu_torch.utils import file_utils, mesh_io, trace
 
 
 def visualize_query_points(query_pts_ms, query_dist_ms, file_out):
@@ -238,7 +238,8 @@ def points_to_surf_eval(eval_opt, device="cuda", shard=None):
 
                 # every batch queued on the device, the last one padded with
                 # its first query; one fetch per shape
-                q_all = torch.from_numpy(queries).to(device)
+                with trace.blocking(device):
+                    q_all = torch.from_numpy(queries).to(device)
                 pending = []
                 for s in range(0, len(queries), batch_size):
                     q = q_all[s : s + batch_size]
@@ -280,18 +281,27 @@ def _save_shape(name, queries, dist, eval_opt, model_out_dir):
         ddir = os.path.join(model_out_dir, "dist_ms")
         os.makedirs(qdir, exist_ok=True)
         os.makedirs(ddir, exist_ok=True)
-        np.save(os.path.join(qdir, name + ".xyz.npy"), queries)
-        np.save(os.path.join(ddir, name + ".xyz.npy"), dist)
+        npys = (os.path.join(qdir, name + ".xyz.npy"),
+                os.path.join(ddir, name + ".xyz.npy"))
+        with trace.span("write.npy"):
+            np.save(npys[0], queries)
+            np.save(npys[1], dist)
         vdir = os.path.join(model_out_dir, "query_pts_ms_vis")
         os.makedirs(vdir, exist_ok=True)
-        visualize_query_points(
-            queries, dist, os.path.join(vdir, name + ".ply")
-        )
+        vis = os.path.join(vdir, name + ".ply")
+        with trace.span("write.query_ply"):
+            visualize_query_points(queries, dist, vis)
+        trace.count_sizes("write.bytes", *npys, vis)
     else:
         edir = os.path.join(model_out_dir, "eval")
         os.makedirs(edir, exist_ok=True)
-        np.save(os.path.join(edir, name + ".xyz.npy"), dist)
-        np.savetxt(os.path.join(edir, name + ".xyz.txt"), dist)
+        outs = (os.path.join(edir, name + ".xyz.npy"),
+                os.path.join(edir, name + ".xyz.txt"))
+        with trace.span("write.npy"):
+            np.save(outs[0], dist)
+            np.savetxt(outs[1], dist)
         vis = os.path.join(model_out_dir, "vis", name + ".ply")
         file_utils.make_dir_for_file(vis)
-        visualize_query_points(queries, dist, vis)
+        with trace.span("write.query_ply"):
+            visualize_query_points(queries, dist, vis)
+        trace.count_sizes("write.bytes", *outs, vis)

@@ -18,52 +18,61 @@ import torch
 
 from points2surf_tpu_torch.device import require_cuda
 from points2surf_tpu_torch.ops import marching_cubes, voxel
-from points2surf_tpu_torch.utils import file_utils, mesh_io
+from points2surf_tpu_torch.utils import file_utils, mesh_io, trace
 
 
 def _build_volume(query_pts, query_dist, n_valid, grid_res, sigma,
-                  certainty_threshold, seed_filter=0, stats=None):
+                  certainty_threshold, seed_filter=0):
     """(grid_res,)*3 float32 volume in [-1, 1] from query points and
-    distances, tensors on their device; rows >= n_valid are ignored.
-    ``stats``, if given, receives the propagation's ``rounds``."""
-    vol = voxel.splat_to_volume(query_pts, query_dist, n_valid, grid_res)
-    if seed_filter:
-        # flood containment (experimental): drop isolated wrong-sign seeds
-        # before propagation (ops/voxel.filter_seed_signs)
-        vol = voxel.filter_seed_signs(vol, 3, seed_filter)
-    vol = voxel.propagate_sign(vol, sigma, certainty_threshold, stats)
-    return torch.clamp(vol, -1.0, 1.0)
+    distances, tensors on their device; rows >= n_valid are ignored."""
+    with trace.span("volume.splat"):
+        vol = voxel.splat_to_volume(query_pts, query_dist, n_valid, grid_res)
+        if seed_filter:
+            # flood containment (experimental): drop isolated wrong-sign
+            # seeds before propagation (ops/voxel.filter_seed_signs)
+            vol = voxel.filter_seed_signs(vol, 3, seed_filter)
+    with trace.span("volume.propagate"):
+        vol = voxel.propagate_sign(vol, sigma, certainty_threshold)
+        return torch.clamp(vol, -1.0, 1.0)
 
 
 def _device_volume(query_pts_ms, query_dist_ms, grid_res, sigma,
                    certainty_threshold, seed_filter, device) -> np.ndarray:
     """Build the volume of host arrays on ``device`` and fetch it (f32)."""
     dev = require_cuda(device)
-    pts = torch.as_tensor(np.asarray(query_pts_ms, np.float32), device=dev)
-    dist = torch.as_tensor(np.asarray(query_dist_ms, np.float32), device=dev)
+    with trace.span("volume.upload"), trace.blocking(dev, 2):
+        pts = torch.as_tensor(np.asarray(query_pts_ms, np.float32),
+                              device=dev)
+        dist = torch.as_tensor(np.asarray(query_dist_ms, np.float32),
+                               device=dev)
     vol = _build_volume(pts, dist, len(query_pts_ms), grid_res, sigma,
                         certainty_threshold, seed_filter)
-    return vol.cpu().numpy()
+    with trace.span("volume.fetch"), trace.blocking(dev):
+        return vol.cpu().numpy()
 
 
 def _write_debug_volume(query_pts_ms, query_dist_ms, volume_out_file):
     """Colored query-point debug volume (reference sdf.py:204-209)."""
-    dist_norm = query_dist_ms / max(float(np.abs(query_dist_ms).max()), 1e-12)
-    colors = np.zeros((dist_norm.shape[0], 3))
-    neg = dist_norm < 0.0
-    pos = dist_norm > 0.0
-    colors[neg, 0] = np.abs(dist_norm[neg]) + 0.5
-    colors[pos, 1] = dist_norm[pos] + 0.5
-    mesh_io.write_off(
-        volume_out_file, query_pts_ms, np.array([]), colors_vertex=colors
-    )
+    with trace.span("write.off"):
+        dist_norm = query_dist_ms / max(float(np.abs(query_dist_ms).max()),
+                                        1e-12)
+        colors = np.zeros((dist_norm.shape[0], 3))
+        neg = dist_norm < 0.0
+        pos = dist_norm > 0.0
+        colors[neg, 0] = np.abs(dist_norm[neg]) + 0.5
+        colors[pos, 1] = dist_norm[pos] + 0.5
+        mesh_io.write_off(
+            volume_out_file, query_pts_ms, np.array([]), colors_vertex=colors
+        )
+    trace.count_sizes("write.bytes", volume_out_file)
 
 
 def _extract_and_write(vol: np.ndarray, mc_out_file: str,
                        grid_res: int, query_pts_ms=None) -> bool:
     if vol.min() < 0.0 < vol.max():
         t0 = time.time()
-        v, f = marching_cubes.extract_isosurface(vol, 0.0)
+        with trace.span("mesh.marching"):
+            v, f = marching_cubes.extract_isosurface(vol, 0.0)
         print(f"Isosurface extraction took: {time.time() - t0}")
         if v.size == 0:
             print("Warning: isosurface extraction gives no result!")
@@ -90,7 +99,9 @@ def _extract_and_write(vol: np.ndarray, mc_out_file: str,
                     "from near-surface sign errors"
                 )
         file_utils.make_dir_for_file(mc_out_file)
-        mesh_io.write_ply(mc_out_file, v, f)
+        with trace.span("write.mesh_ply"):
+            mesh_io.write_ply(mc_out_file, v, f)
+        trace.count_sizes("write.bytes", mc_out_file)
         return True
     print("Warning: volume for marching cubes contains no 0-level set!")
     return False

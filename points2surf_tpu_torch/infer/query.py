@@ -14,13 +14,15 @@ from points2surf_tpu_torch.ops.patches import (
     PatchConfig, draw_batch, extract_patches)
 from points2surf_tpu_torch.parallel.distributed import (
     gather_blocks, installed)
+from points2surf_tpu_torch.utils import trace
 
 
 def drain_batched_results(pending, n_total: int) -> np.ndarray:
     """Concatenate (B,) device results and fetch them as one host array."""
     if not pending:
         return np.empty(0, np.float32)
-    return torch.cat(pending)[:n_total].cpu().numpy()
+    with trace.span("query.fetch"), trace.blocking(pending[0].device):
+        return torch.cat(pending)[:n_total].cpu().numpy()
 
 
 def postprocess_sdf(pred: torch.Tensor, radius: torch.Tensor, outputs,
@@ -76,12 +78,16 @@ def make_sdf_query_fn(model: torch.nn.Module, outputs,
 
     @torch.inference_mode()
     def query(points, queries, n_valid, rng, small_cloud: bool = False):
-        batch = extract_patches(points, queries, n_valid, rng, cfg=patch_cfg,
-                                train=augment, small_cloud=small_cloud,
-                                coherent=coherent)
-        pred = model(batch)
-        return postprocess_sdf(pred, batch["patch_radius_ms"], outputs,
-                               fixed_radius)
+        with trace.span("query.extract"):
+            batch = extract_patches(points, queries, n_valid, rng,
+                                    cfg=patch_cfg, train=augment,
+                                    small_cloud=small_cloud,
+                                    coherent=coherent)
+        with trace.span("query.forward"):
+            pred = model(batch)
+        with trace.span("query.post"):
+            return postprocess_sdf(pred, batch["patch_radius_ms"], outputs,
+                                   fixed_radius)
 
     if mesh is None or installed(mesh).data == 1:
         return query

@@ -43,6 +43,7 @@ from points2surf_tpu_torch.device import bf16_operands as _resolve_mode
 from points2surf_tpu_torch.device import round_bf16
 from points2surf_tpu_torch.ops.kernels.build import (
     CI, VP, check_launch, load_library, sm_count)
+from points2surf_tpu_torch.utils import trace
 
 # widths the CUDA kernels are compiled for (conv1/conv2 of every trunk)
 KERNEL_C1 = 64
@@ -240,11 +241,12 @@ def chain_head(x: torch.Tensor, layers, *,
     h2 = torch.empty((b, n, KERNEL_C2), device=x.device,
                      dtype=torch.bfloat16 if bf16 else torch.float32)
     dev = x.device.index
-    rc = _head_library().p2s_chain_head(
-        dev, x.data_ptr(), b * n, cin,
-        w1.data_ptr(), a1.data_ptr(), c1.data_ptr(), KERNEL_C1,
-        w2.data_ptr(), a2.data_ptr(), c2.data_ptr(), KERNEL_C2, int(bf16),
-        h2.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
+    with trace.span("kernel.chain"):
+        rc = _head_library().p2s_chain_head(
+            dev, x.data_ptr(), b * n, cin,
+            w1.data_ptr(), a1.data_ptr(), c1.data_ptr(), KERNEL_C1,
+            w2.data_ptr(), a2.data_ptr(), c2.data_ptr(), KERNEL_C2,
+            int(bf16), h2.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
     check_launch("chain_head", rc)
     if bf16:
         chain_head.launches_bf16 += 1
@@ -284,10 +286,11 @@ def chain_tail(h: torch.Tensor, layer, *, sym_op: str = "max",
     buf = torch.empty(wt_floats + b * cout, device=h.device,
                       dtype=torch.float32)
     dev = h.device.index
-    rc = _tail_library().p2s_chain_pool(
-        dev, h.data_ptr(), b, n, k, w.data_ptr(), a.data_ptr(),
-        c.data_ptr(), cout, int(sym_op == "max"), int(relu_last), int(bf16),
-        buf.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
+    with trace.span("kernel.chain"):
+        rc = _tail_library().p2s_chain_pool(
+            dev, h.data_ptr(), b, n, k, w.data_ptr(), a.data_ptr(),
+            c.data_ptr(), cout, int(sym_op == "max"), int(relu_last),
+            int(bf16), buf.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
     check_launch("chain_pool", rc)
     if bf16:
         chain_pool.launches_bf16 += 1
@@ -330,13 +333,14 @@ def chain_fused(x: torch.Tensor, layers, *, sym_op: str = "max",
                  + cout * KERNEL_C2) // 2
     buf = torch.empty(wt_floats + b * cout, device=x.device,
                       dtype=torch.float32)
-    rc = _fused_library().p2s_chain_fused(
-        dev, x.data_ptr(), b, n, cin, w1.data_ptr(), a1.data_ptr(),
-        c1.data_ptr(), w2.data_ptr(), a2.data_ptr(), c2.data_ptr(),
-        w3.data_ptr(), a3.data_ptr(), c3.data_ptr(), cout,
-        int(sym_op == "max"), int(relu_last), plan["blocks"], plan["splits"],
-        plan["per_split"], plan["smem_bytes"], buf.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev))
+    with trace.span("kernel.chain"):
+        rc = _fused_library().p2s_chain_fused(
+            dev, x.data_ptr(), b, n, cin, w1.data_ptr(), a1.data_ptr(),
+            c1.data_ptr(), w2.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+            w3.data_ptr(), a3.data_ptr(), c3.data_ptr(), cout,
+            int(sym_op == "max"), int(relu_last), plan["blocks"],
+            plan["splits"], plan["per_split"], plan["smem_bytes"],
+            buf.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
     check_launch("chain_fused", rc)
     chain_pool.launches_fused_bf16 += 1
     return buf[wt_floats:].view(b, cout)

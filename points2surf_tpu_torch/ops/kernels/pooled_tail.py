@@ -34,6 +34,7 @@ from points2surf_tpu_torch.device import bf16_operands as _resolve_mode
 from points2surf_tpu_torch.device import round_bf16
 from points2surf_tpu_torch.ops.kernels.build import (
     CI, VP, check_launch, load_library, sm_count)
+from points2surf_tpu_torch.utils import trace
 
 KERNEL_CIN = 128  # the conv2 width that feeds every conv3 tail
 PREC_ENV = "P2S_PALLAS_TAIL_PREC"
@@ -140,19 +141,21 @@ def pooled_tail_reductions(x: torch.Tensor, w: torch.Tensor,
         plan = bf16_launch_plan(bsz, n, c, sm_count(dev))
         # W^T (C, 128) in bf16
         scratch = torch.empty(c * cin, device=x.device, dtype=torch.bfloat16)
-        rc = _bf16_library().p2s_pooled_tail_bf16(
-            dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
-            plan["blocks"], plan["smem_bytes"], scratch.data_ptr(), *outs,
-            stream)
+        with trace.span("kernel.tail"):
+            rc = _bf16_library().p2s_pooled_tail_bf16(
+                dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(),
+                c, plan["blocks"], plan["smem_bytes"], scratch.data_ptr(),
+                *outs, stream)
         check_launch("pooled_tail_bf16", rc)
         pooled_tail_reductions.launches_bf16 += 1
     else:
         # W^T (C, 128) split into tf32 hi and lo parts
         scratch = torch.empty(2 * c * cin, device=x.device,
                               dtype=torch.float32)
-        rc = _library().p2s_pooled_tail(
-            dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(), c,
-            scratch.data_ptr(), *outs, stream)
+        with trace.span("kernel.tail"):
+            rc = _library().p2s_pooled_tail(
+                dev, x.data_ptr(), bsz, n, cin, w.data_ptr(), b.data_ptr(),
+                c, scratch.data_ptr(), *outs, stream)
         check_launch("pooled_tail", rc)
         pooled_tail_reductions.launches += 1
     return cmax, amax, cmin, amin, rsum, rsq

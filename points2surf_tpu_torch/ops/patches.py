@@ -48,6 +48,7 @@ import torch
 
 from points2surf_tpu_torch.ops import geometry
 from points2surf_tpu_torch.ops.knn import NEG_INF, _pairwise_sqdist
+from points2surf_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,7 +308,9 @@ def _tile_select(points, queries, n_valid, k, tile, m, radius=0.0,
             torch.isfinite(v[..., -1]), d_k + q_c <= r_m[:, None], True),
             dim=1)
     else:
-        r = torch.tensor(radius, dtype=torch.float32, device=points.device)
+        with trace.blocking(points.device):  # a copy of a host scalar
+            r = torch.tensor(radius, dtype=torch.float32,
+                             device=points.device)
         u = ball.block("tiles", 0, (b // tile, tile, m))
         v, i = torch.topk(torch.where(cand_invalid | (d2 > r * r), NEG_INF,
                                       u), k, dim=2)
@@ -329,8 +332,9 @@ def _dense_select(points, queries, n_valid, k, cfg,
     chunk)."""
     n = points.shape[0]
     invalid = (torch.arange(n, device=points.device) >= n_valid)[None, :]
-    r = torch.tensor(max(cfg.patch_radius, 0.0), dtype=torch.float32,
-                     device=points.device)
+    with trace.blocking(points.device):  # a copy of a host scalar
+        r = torch.tensor(max(cfg.patch_radius, 0.0), dtype=torch.float32,
+                         device=points.device)
     ids, pads = [], []
     for s in range(0, queries.shape[0], cfg.query_chunk):
         q = queries[s:s + cfg.query_chunk]
@@ -430,20 +434,26 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
               else _ball_tile_candidates(cfg, n))
     use_tiles = (not cfg.exact and not train and coherent and n > 2 * tile_m
                  and b >= 64)
+    dense = not use_tiles
     if use_tiles:
-        tile = min(cfg.tile_queries, b)
-        pad_rows = (-b) % tile
-        q_sel = (torch.cat([queries, queries[:1].expand(pad_rows, 3)])
-                 if pad_rows else queries)
-        ids, pad, cert = _tile_select(points, q_sel, n_valid, k, tile,
-                                      tile_m, cfg.patch_radius, ball)
-        ids, pad = ids[:b], pad[:b]
+        trace.count("extract.tiled")
+        with trace.span("extract.tiles"):
+            tile = min(cfg.tile_queries, b)
+            pad_rows = (-b) % tile
+            q_sel = (torch.cat([queries, queries[:1].expand(pad_rows, 3)])
+                     if pad_rows else queries)
+            ids, pad, cert = _tile_select(points, q_sel, n_valid, k, tile,
+                                          tile_m, cfg.patch_radius, ball)
+            ids, pad = ids[:b], pad[:b]
         # any uncertified tile: select the whole batch again against the
         # full cloud (one host sync per batch)
-        if not bool(torch.all(cert)):
+        with trace.span("extract.certify"), trace.blocking(cert.device):
+            dense = not bool(torch.all(cert))
+        if dense:
+            trace.count("extract.fallback")
+    if dense:
+        with trace.span("extract.dense"):
             ids, pad = _dense_select(points, queries, n_valid, k, cfg, ball)
-    else:
-        ids, pad = _dense_select(points, queries, n_valid, k, cfg, ball)
 
     # padding slots land on the query point -> the patch origin
     patch_pts_ms = torch.where(pad[..., None], queries[:, None, :],
@@ -457,19 +467,21 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
     patch_pts_ps = geometry.model_space_to_patch_space(patch_pts_ms, queries,
                                                        radius)
 
-    if sub_n > 0 and _uniform_mode(cfg, small_cloud):
-        if draws.ids is None or tuple(draws.ids.shape) != (b, sub_n):
-            shape = None if draws.ids is None else tuple(draws.ids.shape)
-            raise ValueError(f"draws.ids has shape {shape}, expected "
-                             f"{(b, sub_n)}")
-        sub = points[draws.ids]
-    elif sub_n > 0:
-        sub_ids, sub_pad = _gumbel_subsample(
-            points, queries, n_valid, sub_n, draws, cfg, small_cloud,
-            uniform_shuffle=small_cloud)
-        sub = torch.where(sub_pad[..., None], 0.0, points[sub_ids])
-    else:
-        sub = torch.zeros((b, 0, 3), dtype=points.dtype, device=points.device)
+    with trace.span("extract.subsample"):
+        if sub_n > 0 and _uniform_mode(cfg, small_cloud):
+            if draws.ids is None or tuple(draws.ids.shape) != (b, sub_n):
+                shape = None if draws.ids is None else tuple(draws.ids.shape)
+                raise ValueError(f"draws.ids has shape {shape}, expected "
+                                 f"{(b, sub_n)}")
+            sub = points[draws.ids]
+        elif sub_n > 0:
+            sub_ids, sub_pad = _gumbel_subsample(
+                points, queries, n_valid, sub_n, draws, cfg, small_cloud,
+                uniform_shuffle=small_cloud)
+            sub = torch.where(sub_pad[..., None], 0.0, points[sub_ids])
+        else:
+            sub = torch.zeros((b, 0, 3), dtype=points.dtype,
+                              device=points.device)
 
     query_ms = queries
     if train:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from points2surf_tpu_torch.device import require_cuda
+from points2surf_tpu_torch.utils import trace
 
 
 def model_space_to_volume_space(pts_ms: torch.Tensor,
@@ -108,10 +109,14 @@ def grid_query_points(pts_ms: np.ndarray, vol_res: int, threshold_vs: int,
     """Near-surface voxel centers in model space, (Q, 3) float32 on the
     host, Morton-ordered. The mask is computed on ``device`` (the card
     unless the caller asks for the CPU)."""
-    pts = torch.as_tensor(np.asarray(pts_ms)[:, :3], dtype=torch.float32,
-                          device=require_cuda(device))
+    dev = require_cuda(device)
+    with trace.blocking(dev):
+        pts = torch.as_tensor(np.asarray(pts_ms)[:, :3], dtype=torch.float32,
+                              device=dev)
     mask = near_surface_mask(pts, pts.shape[0], vol_res, threshold_vs)
-    vs = np.stack(np.nonzero(mask.cpu().numpy()), axis=1)
+    with trace.blocking(dev):
+        mask = mask.cpu().numpy()
+    vs = np.stack(np.nonzero(mask), axis=1)
     vs = vs[_morton_order_host(vs)].astype(np.float32)
     return (((vs + 0.5) / vol_res) * 2.0 - 1.0).astype(np.float32)
 
@@ -153,8 +158,7 @@ def filter_seed_signs(vol: torch.Tensor, size: int = 3,
 
 
 def propagate_sign(vol: torch.Tensor, sigma: int = 5,
-                   certainty_threshold: int = 13,
-                   stats: dict | None = None) -> torch.Tensor:
+                   certainty_threshold: int = 13) -> torch.Tensor:
     """Iteratively propagate SDF signs from seed voxels (sdf.py:114-178).
 
     Each round sums the current {-1,0,+1} sign field over a (sigma^3) box;
@@ -164,7 +168,7 @@ def propagate_sign(vol: torch.Tensor, sigma: int = 5,
     it; the first round that does not ends the loop. Each round's test costs
     one host sync. The volume borders are assumed outside (forced to -1) in
     the *output* only, not in the seeds (the reference's in-place border
-    write, sdf.py:149-154). ``stats``, if given, receives ``rounds``.
+    write, sdf.py:149-154). The rounds count in ``volume.rounds``.
     """
     sign = torch.sign(vol)
     unknown_init = sign == 0.0
@@ -176,11 +180,13 @@ def propagate_sign(vol: torch.Tensor, sigma: int = 5,
         new = torch.sign(torch.where(conv.abs() < certainty_threshold, 0.0,
                                      conv))
         unknown_after = torch.count_nonzero(new == 0.0)
-        if not bool((unknown_before > 0) & (unknown_after < unknown_before)):
+        with trace.blocking(vol.device):
+            more = bool((unknown_before > 0)
+                        & (unknown_after < unknown_before))
+        if not more:
             break
         sign = torch.where(unknown_init, new, sign)
-    if stats is not None:
-        stats["rounds"] = rounds
+    trace.count("volume.rounds", rounds)
 
     vol_b = vol.clone()
     for axis in range(3):

@@ -31,6 +31,8 @@ scalars, checkpoints and the run's params.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
 import os
 import time
@@ -56,6 +58,7 @@ from points2surf_tpu_torch.models.weights import (
 from points2surf_tpu_torch.ops.patches import PatchConfig, extract_patches
 from points2surf_tpu_torch.parallel import distributed, replicate, shard_batch
 from points2surf_tpu_torch.train import checkpoint as ckpt
+from points2surf_tpu_torch.utils import trace
 
 GREEN = "\033[92m"
 BLUE = "\033[94m"
@@ -165,39 +168,43 @@ class TrainStep:
     def forward_loss(self, batch: dict):
         """Train-mode forward and the weighted losses: (losses, pred). The
         losses and metrics take a bf16 prediction in float32."""
-        self.model.train()
-        pred = self.model(batch)
-        pred = pred.to(torch.promote_types(pred.dtype, torch.float32))
-        return L.compute_loss(pred, batch, self.outputs, self.loss_weights,
-                              self.fixed_radius), pred
+        with trace.span("train.forward"):
+            self.model.train()
+            pred = self.model(batch)
+            pred = pred.to(torch.promote_types(pred.dtype, torch.float32))
+            return L.compute_loss(pred, batch, self.outputs,
+                                  self.loss_weights, self.fixed_radius), pred
 
     def backward(self, losses) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
-        torch.stack(losses).sum().backward()
-        if distributed.data_size() > 1:
-            grads = [p.grad for p in self.model.parameters()
-                     if p.grad is not None]
-            flat = distributed.mean_over_ranks_(
-                torch.cat([g.reshape(-1) for g in grads]))
-            start = 0
-            for g in grads:
-                g.copy_(flat[start:start + g.numel()].view_as(g))
-                start += g.numel()
+        with trace.span("train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            torch.stack(losses).sum().backward()
+            if distributed.data_size() > 1:
+                grads = [p.grad for p in self.model.parameters()
+                         if p.grad is not None]
+                flat = distributed.mean_over_ranks_(
+                    torch.cat([g.reshape(-1) for g in grads]))
+                start = 0
+                for g in grads:
+                    g.copy_(flat[start:start + g.numel()].view_as(g))
+                    start += g.numel()
 
     def update(self) -> None:
-        for group in self.optimizer.param_groups:
-            group["lr"] = learning_rate(self.step, self.lr, self.boundaries)
-        self.optimizer.step()
-        self.step += 1
+        with trace.span("train.update"):
+            for group in self.optimizer.param_groups:
+                group["lr"] = learning_rate(self.step, self.lr,
+                                            self.boundaries)
+            self.optimizer.step()
+            self.step += 1
 
     def train_step(self, batch: dict):
         """One SGD step on ``batch``: (losses (n_losses,), metrics)."""
         losses, pred = self.forward_loss(batch)
         self.backward(losses)
         self.update()
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("train.metrics"):
             metrics = L.calc_metrics(self.outputs, pred, batch)
-        return torch.stack(losses).detach(), metrics
+            return torch.stack(losses).detach(), metrics
 
     def eval_step(self, batch: dict):
         """Eval-mode losses and metrics of ``batch``; no state changes."""
@@ -215,13 +222,14 @@ class TrainStep:
                             small_cloud: bool = False) -> dict:
         """Train-mode patches of ``queries`` with their ground-truth signed
         distances ``gt`` (B,)."""
-        batch = extract_patches(points, queries, n_valid, rng,
-                                cfg=self.patch_cfg, train=True,
-                                small_cloud=small_cloud)
-        batch["imp_surf_ms"] = gt
-        batch["imp_surf_magnitude_ms"] = torch.abs(gt)
-        batch["imp_surf_dist_sign_ms"] = (gt >= 0.0).to(torch.float32)
-        return batch
+        with trace.span("train.extract"):
+            batch = extract_patches(points, queries, n_valid, rng,
+                                    cfg=self.patch_cfg, train=True,
+                                    small_cloud=small_cloud)
+            batch["imp_surf_ms"] = gt
+            batch["imp_surf_magnitude_ms"] = torch.abs(gt)
+            batch["imp_surf_dist_sign_ms"] = (gt >= 0.0).to(torch.float32)
+            return batch
 
     def train_step_fused(self, points, queries, n_valid, gt, rng,
                          small_cloud: bool = False):
@@ -356,9 +364,10 @@ class Trainer:
                                       n_valid=n_valid)
         if distributed.data_size() > 1:
             draws = draws.rows(lo, hi, chunk=self.patch_cfg.query_chunk)
-        q = torch.from_numpy(shape.query_pts[local_inds[lo:hi]]).to(
-            self.device)
-        gt = torch.from_numpy(gt[lo:hi]).to(self.device)
+        with trace.blocking(self.device, 2):
+            q = torch.from_numpy(shape.query_pts[local_inds[lo:hi]]).to(
+                self.device)
+            gt = torch.from_numpy(gt[lo:hi]).to(self.device)
         return self.steps.train_step_fused(pts_dev, q, n_valid, gt, draws,
                                            small_cloud=small)
 
@@ -371,11 +380,13 @@ class Trainer:
         host once; rank 0 logs them."""
         opt = self.opt
         mkeys = tuple(sorted(metrics))
-        flat_np = distributed.mean_over_ranks_(torch.cat(
+        flat = distributed.mean_over_ranks_(torch.cat(
             [loss_list.reshape(-1).float()]
             + ([torch.stack([metrics[k].float() for k in mkeys])]
                if mkeys else [])
-        )).cpu().numpy()
+        ))
+        with trace.blocking(flat.device):
+            flat_np = flat.cpu().numpy()
         n_loss = flat_np.shape[0] - len(mkeys)
         if not distributed.is_main_process():
             return
@@ -433,7 +444,8 @@ class Trainer:
         )
 
         # opt-in trace: P2S_PROFILE_DIR receives a torch.profiler trace of
-        # global steps 5-10 (cut short if the run ends inside them)
+        # global steps 5-10 (cut short if the run ends inside them) and the
+        # port's spans and counters of the same steps
         profile_dir = os.environ.get("P2S_PROFILE_DIR", "")
         profile_window = (5, 10) if profile_dir else None
         prof = None
@@ -563,19 +575,26 @@ class Trainer:
 
 
 def _start_profile(device: torch.device):
+    """(the open window, the profiler, the dict the recorder fills when the
+    window closes)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
+    window = contextlib.ExitStack()
+    prof = window.enter_context(profile(activities=acts))
+    program = window.enter_context(trace.recording())
+    return window, prof, program
 
 
-def _stop_profile(prof, profile_dir: str) -> None:
-    prof.stop()
+def _stop_profile(opened, profile_dir: str) -> None:
+    window, prof, program = opened
+    window.close()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "train_steps_5_10.json")
     prof.export_chrome_trace(path)
-    print(f"profiler trace of steps 5-10 -> {path}")
+    spans = os.path.join(profile_dir, "program_spans_5_10.json")
+    with open(spans, "w") as f:
+        json.dump(program, f)
+    print(f"profiler trace of steps 5-10 -> {path}, spans -> {spans}")

@@ -22,6 +22,7 @@ import torch
 from points2surf_tpu_torch.infer import meshing as tm
 from points2surf_tpu_torch.ops import voxel as tv
 from points2surf_tpu_torch.utils import mesh_io as tio
+from points2surf_tpu_torch.utils import trace
 
 GRID = 32
 
@@ -73,14 +74,14 @@ def test_build_volume_matches_jax(seed_filter, flip):
     from points2surf_tpu.infer import meshing as jm
 
     q, d = _sphere_queries(0.45, seed=3, flip=flip)
-    stats = {}
-    got = tm._build_volume(torch.from_numpy(q), torch.from_numpy(d), len(q),
-                           GRID, 5, 13, seed_filter, stats).numpy()
+    with trace.recording() as recording:
+        got = tm._build_volume(torch.from_numpy(q), torch.from_numpy(d),
+                               len(q), GRID, 5, 13, seed_filter).numpy()
     want = np.asarray(jm._build_volume(jnp.asarray(q), jnp.asarray(d),
                                        len(q), GRID, 5, 13, seed_filter))
     assert got.dtype == np.float32 and got.shape == (GRID,) * 3
     np.testing.assert_array_equal(got, want)
-    assert stats["rounds"] >= 2
+    assert recording["counters"]["volume.rounds"] >= 2
     assert got.min() == -1.0 and got.max() > 0.0
 
 
@@ -317,11 +318,11 @@ def test_build_volume_gpu_equals_cpu(cuda_device, seed_filter):
     q, d = _sphere_queries(0.45, n_pts=20000, seed=6, grid=64, flip=0.03)
     vols, rounds = [], []
     for dev in (cuda_device, torch.device("cpu")):
-        stats = {}
-        vols.append(tm._build_volume(
-            torch.from_numpy(q).to(dev), torch.from_numpy(d).to(dev), len(q),
-            64, 5, 13, seed_filter, stats).cpu())
-        rounds.append(stats["rounds"])
+        with trace.recording() as recording:
+            vols.append(tm._build_volume(
+                torch.from_numpy(q).to(dev), torch.from_numpy(d).to(dev),
+                len(q), 64, 5, 13, seed_filter).cpu())
+        rounds.append(recording["counters"]["volume.rounds"])
     assert torch.equal(vols[0], vols[1])
     assert rounds[0] == rounds[1] >= 2
 

@@ -15,6 +15,7 @@ with the same injected draws, the kernels launched.
 """
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 from points2surf_tpu_torch.models.weights import flax_from_state_dict
 from points2surf_tpu_torch.ops import patches as tp
 from points2surf_tpu_torch.train.trainer import Trainer as TorchTrainer
+from points2surf_tpu_torch.utils import trace
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ABC = os.path.join(ROOT, "datasets", "abc_minimal")
@@ -155,7 +157,14 @@ def test_resume_from_snapshot(tmp_path, monkeypatch):
                       log_writer=w, device="cpu")
     tr.train()  # global steps 0-5: the trace starts at step 5
     assert sum(t == "loss/train/total" for t, _, _ in w.scalars) == 6
-    assert os.listdir(tmp_path / "trace") == ["train_steps_5_10.json"]
+    assert sorted(os.listdir(tmp_path / "trace")) == [
+        "program_spans_5_10.json", "train_steps_5_10.json"]
+    with open(tmp_path / "trace" / "program_spans_5_10.json") as f:
+        recorded = json.load(f)
+    names = {s["name"] for s in recorded["spans"]}
+    assert {"train.forward", "train.backward", "train.update"} <= names
+    assert "host_syncs" not in recorded["counters"]  # nothing waits on CPU
+    assert not trace.enabled()
     monkeypatch.delenv("P2S_PROFILE_DIR")
     snap = str(tmp_path / "models" / "t_model_1.npz")
     tr2 = TorchTrainer(train_opt(str(tmp_path), nepoch=4, refine=snap),

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from points2surf_tpu_torch.ops import voxel as tv
+from points2surf_tpu_torch.utils import trace
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
@@ -100,12 +101,12 @@ def test_filter_seed_signs_matches_jax(rng, threshold):
                                                  (5, 13, 17)])
 def test_propagate_sign_matches_jax(rng, sigma, certainty, res):
     vol = _sparse_seeds(rng, res)
-    stats = {}
-    got = tv.propagate_sign(torch.from_numpy(vol), sigma, certainty,
-                            stats).numpy()
+    with trace.recording() as recording:
+        got = tv.propagate_sign(torch.from_numpy(vol), sigma,
+                                certainty).numpy()
     want = np.asarray(jv.propagate_sign(jnp.asarray(vol), sigma, certainty))
     np.testing.assert_array_equal(got, want)
-    assert stats["rounds"] >= 2
+    assert recording["counters"]["volume.rounds"] >= 2
     assert (got[1:-1, 1:-1, 1:-1] != 0).mean() > 0.9
 
 
