@@ -17,6 +17,9 @@ the reconstruction of a 256^3 mesh:
    there), with their times and the five chains' share of their bound;
    ``pooled_tail`` at the train path's three tail shapes (each run twice,
    bit-identical), with the five tails' share of their bound;
+   ``pooled_tail_grad`` (the max-pool backward's one-hot terms) at the same
+   five tails with the model's cotangent pattern (each run twice,
+   bit-identical), with its share of its bound;
    ``mlp_maxpool``, which no path calls, at four encoder-tail shapes
    (``MLP_SHAPES``);
 3. the query slice on the GPU against the same slice on the CPU, on the
@@ -28,7 +31,8 @@ the reconstruction of a 256^3 mesh:
    float64 at batch 64: same weights, momentum buffers, random draws and
    rotations;
 6. train throughput at batch 1000, with its stage split,
-   ``pooled_tail``'s launch count and a ``torch.profiler`` summary;
+   ``pooled_tail``'s and ``pooled_tail_grad``'s launch counts and a
+   ``torch.profiler`` summary;
 7. seconds per 256^3 mesh by ``bench.py``'s recipe, through the port:
    grid-256 queries, the query sweep at batch 4096, a proxy sign over the
    sweep's magnitudes, the volume (splat, sign propagation) on the card,
@@ -176,7 +180,7 @@ MESH_SIGMA = 5
 MESH_CERTAINTY = 13
 MESH_PASSES = 2
 KERNEL_SOURCES = ("chain_head", "chain_pool", "chain_fused", "pooled_tail",
-                  "pooled_tail_bf16", "mlp_maxpool")
+                  "pooled_tail_bf16", "pooled_tail_grad", "mlp_maxpool")
 # least-time bounds: fp32-class work at 3xTF32 on the 495 TFLOP/s dense TF32
 # peak, bf16-operand work at the 989 TFLOP/s dense bf16 peak, and HBM3 at
 # 3.35 TB/s (H100 SXM data sheet)
@@ -338,6 +342,7 @@ def phase_device(torch):
     cp._fused_library()
     pt._library()
     pt._bf16_library()
+    pt._grad_library()
     mm._library()
     marching_native._library()
     print(f"[device] {len(built)} kernel sources built in parallel + loaded "
@@ -632,6 +637,91 @@ def phase_tail_kernels(torch, device):
                         f"B={b} n={n}")
         del x, got
     return tail, mlp
+
+
+def _tail_grad_cost(torch, amax, amin, gmax, gmin, n, cout=NET):
+    """(FLOP, bytes) of pooled_tail_grad on these args and cotangents: an FMA
+    per column for dx and one for dW per nonzero entry; the args and
+    cotangents, W and grad_w (read and written), and the distinct rows
+    (b, arg) of nonzero entries, of x (read) and grad_x (read and written),
+    each once."""
+    b = amax.shape[0]
+    rows = torch.arange(b, device=amax.device)[:, None] * n
+    keys = torch.cat([(rows + amax)[gmax != 0], (rows + amin)[gmin != 0]])
+    nnz, touched = int(keys.numel()), int(torch.unique(keys).numel())
+    flop = 4.0 * nnz * 128
+    nbytes = 4.0 * (4 * b * cout + 3 * 128 * cout + 3 * touched * 128)
+    return flop, nbytes
+
+
+def phase_tail_grad(torch, device):
+    """pooled_tail_grad at the five conv3 tails of a batch-1000 train step
+    and a ragged case, with the model's cotangent pattern (a channel's BN
+    scale picks gmax or gmin; the other is zero) and the forward kernel's
+    args: against its plain version (rtol 1e-4, atol 1e-4 * max|ref|),
+    twice bit-identical, then timed with its plain version."""
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_grad, pooled_tail_grad_reference, pooled_tail_reductions)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    res = {"max_abs_err": 0.0}
+    times, costs = {}, {}
+    for b, n, cout in [(TRAIN_BATCH, n, NET) for n, _ in TAIL_SITES] + [
+            (37, 129, 1000)]:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+
+        x = torch.relu(randn(b, n, 128))
+        w = randn(128, cout) / 128 ** 0.5
+        _, amax, _, amin, _, _ = pooled_tail_reductions(
+            x, w, torch.zeros(cout, device=device))
+        up = randn(cout) >= 0
+        gmax = torch.where(up, randn(b, cout), 0.0)
+        gmin = torch.where(up, 0.0, randn(b, cout))
+        gx0, gw0 = 0.01 * randn(b, n, 128), 0.01 * randn(128, cout)
+        args = (x, w, amax, amin, gmax, gmin)
+        outs = []
+        for _ in range(2):
+            gx = gx0.clone()
+            outs.append((gx, pooled_tail_grad(*args, gx, gw0.clone())))
+        want_x = gx0.clone()
+        want_w = pooled_tail_grad_reference(*args, want_x, gw0.clone())
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, a) for g, a in zip(*outs)),
+              f"pooled_tail_grad B={b} n={n} C={cout}: a rerun differs")
+        bad, err = 0, 0.0
+        for g, r in zip(outs[0], (want_x, want_w)):
+            e, nb = _close(g, r, "pooled_tail_grad")
+            err, bad = max(err, e), bad + nb
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        msg = (f"[kernel] pooled_tail_grad B={b} n={n} C={cout}: max_abs_err "
+               f"{err:.3e} (rtol 1e-4, atol 1e-4*max|ref|), {bad} outside, "
+               f"rerun bit-identical")
+        if b == TRAIN_BATCH:
+            gx, gw = gx0.clone(), gw0.clone()
+            t_k = _events_ms(torch, lambda: pooled_tail_grad(*args, gx, gw),
+                             20)
+            t_p = _events_ms(torch, lambda: pooled_tail_grad_reference(
+                *args, gx, gw), 5)
+            flop, nbytes = _tail_grad_cost(torch, amax, amin, gmax, gmin, n)
+            bound, by = _bound(flop, nbytes, PEAK_FLOPS_FP32)
+            times[n], costs[n] = (t_k, t_p), (flop, nbytes)
+            msg += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}; {bound / t_k:.1%})")
+        print(msg)
+        check(bad == 0, f"pooled_tail_grad disagrees with its plain version: "
+                        f"B={b} n={n} C={cout}")
+        del x, outs, want_x, want_w
+    res["ms"] = sum(cnt * times[n][0] for n, cnt in TAIL_SITES)
+    res["plain_ms"] = sum(cnt * times[n][1] for n, cnt in TAIL_SITES)
+    res["cost"] = [sum(cnt * costs[n][i] for n, cnt in TAIL_SITES)
+                   for i in (0, 1)]
+    bound, by = _bound(*res["cost"], PEAK_FLOPS_FP32)
+    print(f"[kernel] the one-hot backward of five conv3 tails of one "
+          f"B={TRAIN_BATCH} train step: kernel {res['ms']:.4f} ms, "
+          f"{bound / res['ms']:.1%} of the {bound:.4f} ms bound ({by}); "
+          f"plain {res['plain_ms']:.4f} ms")
+    return res
 
 
 def _bench_model(torch, device, **variant):
@@ -1025,7 +1115,7 @@ def phase_train_slice(torch, np, device, model, pts_pad, n, queries,
 def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
     from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
-        pooled_tail_reductions)
+        pooled_tail_grad, pooled_tail_reductions)
     from points2surf_tpu_torch.train.trainer import make_train_step
 
     model = copy.deepcopy(model).to(device)
@@ -1043,7 +1133,7 @@ def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pooled_tail_reductions.launches = 0
+    pooled_tail_reductions.launches = pooled_tail_grad.launches = 0
     chain_pool.launches = 0
     for i in range(TRAIN_WARMUP):
         losses, _ = steps.train_step_fused(pts_t, batch_queries(i), n, gt,
@@ -1071,6 +1161,7 @@ def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
         ev[j][4].record()
     torch.cuda.synchronize()
     launches = pooled_tail_reductions.launches
+    grad_launches = pooled_tail_grad.launches
     n_steps = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_SPLIT
     split = [sum(e[s].elapsed_time(e[s + 1]) for e in ev) / TRAIN_SPLIT
              for s in range(4)]
@@ -1082,17 +1173,20 @@ def phase_train_throughput(torch, np, device, model, pts_pad, n, queries):
           f"{TRAIN_SPLIT}): extraction {split[0]:.2f} ms, forward+loss "
           f"{split[1]:.2f} ms, backward {split[2]:.2f} ms, optimizer "
           f"{split[3]:.2f} ms")
-    print(f"[train] pooled_tail launches {launches} over {n_steps} steps "
-          f"(expected {5 * n_steps}); chain_pool launches "
-          f"{chain_pool.launches} (train mode runs no eval chain)")
+    print(f"[train] pooled_tail launches {launches}, pooled_tail_grad "
+          f"{grad_launches} over {n_steps} steps (expected {5 * n_steps} "
+          f"each); chain_pool launches {chain_pool.launches} (train mode "
+          f"runs no eval chain)")
     print(f"[train] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     check(launches == 5 * n_steps,
           "pooled_tail was not launched five times per train step")
+    check(grad_launches == 5 * n_steps,
+          "pooled_tail_grad was not launched five times per train step")
     _card_state("train")
     _profile(torch, lambda i: steps.train_step_fused(
         pts_t, batch_queries(i), n, gt, gen), TRAIN_PROFILE, "train")
-    return launches
+    return launches, grad_launches
 
 
 def _watertight(np, faces) -> bool:
@@ -3875,12 +3969,13 @@ def _tp_worker(rank: str, world: str, work: str) -> int:
 def _tp_float64_grads(torch, device, model, batch, queue, relu):
     """The one-process step's gradients in float64 on the card (phase 5's
     reference): ``model`` (whole, on the CPU) and the one-process float32
-    step's extracted ``batch`` in float64, the tails' plain version taking
-    the grid's arg indices from ``queue`` and the relus the grid's
-    near-tie decisions (``relu``)."""
+    step's extracted ``batch`` in float64, the tails' plain versions (the
+    kernels are float32 only), the forward taking the grid's arg indices
+    from ``queue``, and the relus the grid's near-tie decisions
+    (``relu``)."""
     import points2surf_tpu_torch.models.pointnet as pn
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
-        pooled_tail_reductions_reference)
+        pooled_tail_grad_reference, pooled_tail_reductions_reference)
     from points2surf_tpu_torch.train.trainer import make_train_step
 
     f64 = torch.float64
@@ -3890,14 +3985,15 @@ def _tp_float64_grads(torch, device, model, batch, queue, relu):
     stats = {"args": 0, "own_differs": 0, "bad": 0}
     replay = _replaying_tail(torch, pooled_tail_reductions_reference,
                              list(queue), stats)
-    real, real_torch = pn.pooled_tail_reductions, pn.torch
+    real = pn.pooled_tail_reductions, pn.pooled_tail_grad, pn.torch
     pn.pooled_tail_reductions = replay
+    pn.pooled_tail_grad = pooled_tail_grad_reference
     pn.torch = _TorchWithRelu(torch, relu)
     try:
         steps.train_step({k: v.to(f64) if v.is_floating_point() else v
                           for k, v in batch.items()})
     finally:
-        pn.pooled_tail_reductions, pn.torch = real, real_torch
+        pn.pooled_tail_reductions, pn.pooled_tail_grad, pn.torch = real
     check(not replay.queue and stats["bad"] == 0,
           "the float64 step's tails do not take the grid's arg indices")
     return {k: p.grad.cpu() for k, p in m.named_parameters()}
@@ -4133,6 +4229,7 @@ def main() -> int:
     card = phase_device(torch)
     kern = phase_kernels(torch, device)
     tail, mlp = phase_tail_kernels(torch, device)
+    grad = phase_tail_grad(torch, device)
 
     from points2surf_tpu_torch.ops.patches import PatchConfig
     from points2surf_tpu_torch.ops.voxel import grid_query_points
@@ -4161,8 +4258,8 @@ def main() -> int:
     mlp_launches = mlp_maxpool.launches
     phase_train_slice(torch, np, device, model, pts_pad, n, queries)
     mlp_maxpool.launches = 0
-    tail_launches = phase_train_throughput(torch, np, device, model, pts_pad,
-                                           n, queries)
+    tail_launches, grad_launches = phase_train_throughput(
+        torch, np, device, model, pts_pad, n, queries)
     mlp_launches += mlp_maxpool.launches
     _, mesh_launches = phase_mesh(torch, np, device, cfg, model, pts,
                                   pts_pad, n)
@@ -4208,7 +4305,8 @@ def main() -> int:
     mlp_bytes = 4.0 * (b * n * cin + cin * cout + cout + b * cout)
     # chain_head and chain_pool: the five call sites of one query forward at
     # batch BATCH; pooled_tail: the five conv3 tails of one train step;
-    # mlp_maxpool: MLP_SHAPES[1]; the *_bf16 entries the same in the bf16
+    # pooled_tail_grad: their backward's one-hot terms (fp32 FMA, replaces
+    # no TPU kernel); mlp_maxpool: MLP_SHAPES[1]; the *_bf16 entries the same in the bf16
     # mode (phase 9), bound at the bf16 peak. The bf16 chain runs as
     # chain_fused on every path, so the split pair (chain_head_bf16,
     # chain_pool_bf16: checked and timed beside it) launches 0 times there;
@@ -4251,6 +4349,7 @@ def main() -> int:
                         "datagen_train": gen_launches,
                         "parallel": par["launches"],
                         "tp": tp["launches"]["pooled_tail"]},
+        "pooled_tail_grad": {"train": grad_launches},
         "mlp_maxpool": {"all": mlp_launches},
         "chain_head_bf16": {
             "query": bfl["query"]["chain_head"][1],
@@ -4282,6 +4381,8 @@ def main() -> int:
              opt_err["pooled_tail"], ball["err"]["pooled_tail"],
              par["err"]["pooled_tail"], tp["err"]["pooled_tail"]), tail["ms"],
          tail["plain_ms"], *tail["cost"]),
+        ("pooled_tail_grad", "pooled_tail_grad.cu", None,
+         grad["max_abs_err"], grad["ms"], grad["plain_ms"], *grad["cost"]),
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
          mlp_bytes),
@@ -4302,14 +4403,14 @@ def main() -> int:
     )
     kernels = []
     for name, src, tpu, err, ms, plain_ms, flop, nbytes in entries:
-        bound_ms, bound_by = _bound(
-            flop, nbytes,
-            PEAK_FLOPS_BF16 if name.endswith("_bf16") else PEAK_FLOPS)
+        peak = (PEAK_FLOPS_BF16 if name.endswith("_bf16") else
+                PEAK_FLOPS_FP32 if name == "pooled_tail_grad" else PEAK_FLOPS)
+        bound_ms, bound_by = _bound(flop, nbytes, peak)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"points2surf_tpu_torch/csrc/{src}",
-            "replaces": f"points2surf_tpu/ops/pallas/{tpu}",
+            "replaces": tpu and f"points2surf_tpu/ops/pallas/{tpu}",
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
             "max_abs_err": err,

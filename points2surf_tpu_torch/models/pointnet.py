@@ -88,7 +88,7 @@ from torch import nn
 from points2surf_tpu_torch.ops import geometry
 from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool, fold_conv_bn
 from points2surf_tpu_torch.ops.kernels.pooled_tail import (
-    pooled_tail_reductions)
+    pooled_tail_grad, pooled_tail_reductions)
 from points2surf_tpu_torch.parallel.distributed import (
     data_size, gather_columns, global_sum, sum_input_grad)
 from points2surf_tpu_torch.utils import trace
@@ -304,9 +304,12 @@ class _LinearPoolReductions(torch.autograd.Function):
     gradient of x cast to x's dtype: with N = B n, alpha = (g_mean - 2 mean
     g_var) / N and kappa = 2 g_var / N, dL/dc = (arg-row one-hots of g_max,
     g_min, or g_sum broadcast) + alpha + kappa c, pushed through the linear
-    map analytically. The one-hot terms are gathers of x at the arg rows
-    (for dW) and a scatter-add of g W^T into them (for dx): (B, C, Cin)
-    tensors, never (B, n, C).
+    map analytically. The one-hot terms are ``pooled_tail_grad``: on a GPU
+    a kernel that sorts each row's (point, channel) entries by point and
+    adds g W^T to the arg rows of dx and g x[arg] to the columns of dW,
+    with no (B, C, Cin) tensor; on the CPU its plain version, a
+    scatter-add and a gather through a (B, C, Cin)-expanded index. Never
+    (B, n, C).
 
     The statistics are this rank's: :func:`_pooled_tail` combines them over
     the ranks outside the Function, and autograd carries each rank's share
@@ -357,13 +360,11 @@ class _LinearPoolReductions(torch.autograd.Function):
                   + ((xf.t() @ xf) @ w + xsum[:, None] * b) * kappa)
         grad_b = n_tot * alpha + kappa * (n_tot * mean)
         if ctx.need_minmax:
-            for arg, g in ((amax, grads[0]), (amin, grads[1])):
-                g = g.to(w.dtype)
-                idx = arg.long()[:, :, None].expand(bsz, w.shape[1], cin)
-                grad_x.scatter_add_(1, idx, g[:, :, None] * wt)
-                grad_w = grad_w + torch.sum(
-                    torch.gather(x, 1, idx) * g[:, :, None], dim=0).t()
-                grad_b = grad_b + torch.sum(g, dim=0)
+            gmax, gmin = (g.to(w.dtype) for g in grads[:2])
+            grad_w = pooled_tail_grad(x, w, amax, amin, gmax, gmin, grad_x,
+                                      grad_w)
+            grad_b = (grad_b + torch.sum(gmax, dim=0)
+                      + torch.sum(gmin, dim=0))
         else:
             gsum = grads[0]
             grad_x = grad_x + (gsum @ wt)[:, None, :]

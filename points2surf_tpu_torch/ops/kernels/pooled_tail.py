@@ -24,6 +24,12 @@ The bf16 kernel runs persistent blocks from a launch plan computed here
 the 256-column slice i % slices of W^T and walks the whole batch rows
 i // slices, + blocks // slices, ...; the kernel refuses a plan whose
 shared-memory size differs from its own.
+
+:func:`pooled_tail_grad` is the backward's one-hot half for the max pool
+(``csrc/pooled_tail_grad.cu``, fp32 in both modes; counter
+``pooled_tail_grad.launches``, span ``kernel.tail_grad``): the cotangents
+of cmax and cmin routed to x's arg rows and to W, with no (B, C, Cin)
+tensor and no atomics.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from points2surf_tpu_torch.utils import trace
 
 KERNEL_CIN = 128  # the conv2 width that feeds every conv3 tail
 PREC_ENV = "P2S_PALLAS_TAIL_PREC"
+# csrc/pooled_tail_grad.cu counts a batch row's entries into one shared-
+# memory bin per point
+GRAD_MAX_POINTS = 32768
 
 # csrc/pooled_tail_bf16.cu's launch plan: a block keeps a slice of 256 W^T
 # columns (two consumer warpgroups of 128) and walks 128-point slabs of its
@@ -176,4 +185,82 @@ def _bf16_library():
     return load_library("pooled_tail_bf16", (
         ("p2s_pooled_tail_bf16", (CI, VP, CI, CI, CI, VP, VP, CI, CI, CI,
                                   VP, VP, VP, VP, VP, VP, VP, VP)),
+    ))
+
+
+def pooled_tail_grad_reference(x, w, amax, amin, gmax, gmin, grad_x, grad_w):
+    """Plain PyTorch version: for each arg, a scatter-add of g W^T into
+    grad_x (in place) and a gather of x at the arg rows, both through a
+    (B, C, Cin)-expanded index. Returns grad_w plus the gathered terms (a
+    new tensor)."""
+    bsz, _, cin = x.shape
+    wt = w.t()
+    for arg, g in ((amax, gmax), (amin, gmin)):
+        idx = arg.long()[:, :, None].expand(bsz, w.shape[1], cin)
+        grad_x.scatter_add_(1, idx, g[:, :, None] * wt)
+        grad_w = grad_w + torch.sum(
+            torch.gather(x, 1, idx) * g[:, :, None], dim=0).t()
+    return grad_w
+
+
+def pooled_tail_grad(x, w, amax, amin, gmax, gmin, grad_x, grad_w):
+    """The one-hot terms of the max-pooled tail's backward
+    (``models/pointnet._LinearPoolReductions``), in fp32: adds
+    ``sum_{c: amax[b,c] = p} gmax[b,c] W[:, c]`` and the same of amin and
+    gmin to ``grad_x[b, p]`` in place, and returns grad_w plus
+    ``sum_b gmax[b,c] x[b, amax[b,c]] + gmin[b,c] x[b, amin[b,c]]`` in
+    column c.
+
+    x, grad_x (B, n, Cin); w, grad_w (Cin, C); amax, amin (B, C) int32 or
+    int64; gmax, gmin (B, C). A CPU tensor takes the plain version, in any
+    float dtype. A CUDA tensor launches the kernel, which updates grad_w in
+    place and returns it, or raises: it takes float32, Cin == 128,
+    n <= GRAD_MAX_POINTS and a 16-byte aligned x, any B and any C.
+    """
+    bsz, n, cin = x.shape
+    c = w.shape[1]
+    for t, shape in ((grad_x, x.shape), (w, (cin, c)), (grad_w, (cin, c)),
+                     (amax, (bsz, c)), (amin, (bsz, c)), (gmax, (bsz, c)),
+                     (gmin, (bsz, c))):
+        if t.shape != shape or t.device != x.device:
+            raise ValueError(f"pooled_tail_grad: a {tuple(t.shape)} tensor "
+                             f"on {t.device} where {tuple(shape)} on "
+                             f"{x.device} was due")
+    if {amax.dtype, amin.dtype} - {torch.int32, torch.int64}:
+        raise ValueError("pooled_tail_grad takes int32 or int64 arg indices")
+    if x.device.type == "cpu":
+        return pooled_tail_grad_reference(x, w, amax, amin, gmax, gmin,
+                                          grad_x, grad_w)
+    if x.device.type != "cuda":
+        raise ValueError(f"pooled_tail_grad has no kernel for {x.device}")
+    if (any(t.dtype != torch.float32 for t in (x, w, gmax, gmin, grad_x,
+                                               grad_w))
+            or cin != KERNEL_CIN or n > GRAD_MAX_POINTS or x.data_ptr() % 16
+            or not all(t.is_contiguous() for t in (x, grad_x, grad_w))):
+        raise ValueError(f"CUDA pooled_tail_grad takes float32 values, "
+                         f"contiguous x, grad_x and grad_w, a 16-byte "
+                         f"aligned x, Cin == {KERNEL_CIN} and n <= "
+                         f"{GRAD_MAX_POINTS}, got x {tuple(x.shape)}")
+    amax, amin = (a.to(torch.int32).contiguous() for a in (amax, amin))
+    gmax, gmin = (g.contiguous() for g in (gmax, gmin))
+    wt = w.t().contiguous()
+    dev = x.device.index
+    with trace.span("kernel.tail_grad"):
+        rc = _grad_library().p2s_tail_grad(
+            dev, x.data_ptr(), bsz, n, cin, wt.data_ptr(), c,
+            amax.data_ptr(), amin.data_ptr(), gmax.data_ptr(),
+            gmin.data_ptr(), grad_x.data_ptr(), grad_w.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev))
+    check_launch("pooled_tail_grad", rc)
+    pooled_tail_grad.launches += 1
+    return grad_w
+
+
+pooled_tail_grad.launches = 0
+
+
+def _grad_library():
+    return load_library("pooled_tail_grad", (
+        ("p2s_tail_grad", (CI, VP, CI, CI, CI, VP, CI, VP, VP, VP, VP, VP,
+                           VP, VP)),
     ))

@@ -11,7 +11,16 @@ index). The forward and hand-derived backward of the pooled reductions are
 held against ``jax.value_and_grad`` of ``_linear_pool_reductions`` at
 rtol 1e-4 (value) and rtol / atol 1e-3 (gradients). The CUDA kernel is held
 against the plain version on the card (``cuda``-marked tests).
+
+The backward's one-hot terms (``pooled_tail_grad``): on the CPU the plain
+version must be the scatter-add and gather the backward always ran, bit for
+bit, and the whole backward is held against the JAX package's ``_lpr_bwd``
+on the same residuals, on column slices of W too. On the card the kernel is
+held against the plain version at rtol 1e-5 of max|grad| (fp32 sums in
+another order) and must rerun bit for bit.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +28,8 @@ import torch
 
 from points2surf_tpu_torch.models.pointnet import _LinearPoolReductions
 from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+    pooled_tail_grad,
+    pooled_tail_grad_reference,
     pooled_tail_reductions,
     pooled_tail_reductions_reference,
 )
@@ -164,6 +175,106 @@ def test_pooled_tail_wrapper_checks(rng):
         assert torch.equal(o, r)
 
 
+def _grad_case(gen, b, n, c, kind="random", device="cpu"):
+    """Inputs of pooled_tail_grad: post-relu x, W, args of the forward (so
+    a row's args gather on its extreme points) or of ``kind``, cotangents
+    and dense terms already in grad_x and grad_w. ``kind``: "random";
+    "one_point" (every arg of a row on one point); "distinct" (no two args
+    of a row on one point where n allows); "zero_min" (gmin all zero);
+    "mixed" (the model's pattern: a channel's BN scale picks which of gmax
+    and gmin is nonzero)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(device)
+
+    x = torch.relu(randn(b, n, 128))
+    w = randn(128, c) / 128 ** 0.5
+    _, amax, _, amin, _, _ = pooled_tail_reductions(
+        x, w, torch.zeros(c, device=device))
+    gmax, gmin = randn(b, c), randn(b, c)
+    if kind == "one_point":
+        amax = amin = torch.full_like(amax, n // 2)
+    elif kind == "distinct":
+        ids = torch.arange(2 * c, device=device, dtype=torch.int32) % n
+        amax, amin = (ids[None, :c].expand(b, c).contiguous(),
+                      ids[None, c:].expand(b, c).contiguous())
+    elif kind == "zero_min":
+        gmin = torch.zeros_like(gmin)
+    elif kind == "mixed":
+        up = randn(c) >= 0
+        gmax, gmin = (torch.where(up, gmax, 0.0), torch.where(up, 0.0, gmin))
+    return (x, w, amax, amin, gmax, gmin, 0.01 * randn(b, n, 128),
+            0.01 * randn(128, c))
+
+
+@pytest.mark.parametrize("b,n,c,kind,dtype", [
+    (4, 40, 64, "random", torch.float32), (3, 1, 7, "one_point", torch.float32),
+    (5, 129, 100, "mixed", torch.float32), (4, 40, 64, "mixed", torch.float64)])
+def test_pooled_tail_grad_plain_is_the_backward_scatter(b, n, c, kind, dtype):
+    """The plain version is, bit for bit, what the backward's one-hot terms
+    always were: per arg a scatter-add into grad_x and a gather sum added
+    to grad_w, max then min; with int32 args (the kernel's) and int64 (bf16
+    activations' argmax), and in float64 (the card-against-CPU checks'
+    reference steps)."""
+    x, w, amax, amin, gmax, gmin, grad_x, grad_w = (
+        t.to(dtype) if t.is_floating_point() else t for t in _grad_case(
+            torch.Generator().manual_seed(1), b, n, c, kind))
+    want_x, want_w = grad_x.clone(), grad_w.clone()
+    for arg, g in ((amax, gmax), (amin, gmin)):
+        idx = arg.long()[:, :, None].expand(b, c, 128)
+        want_x.scatter_add_(1, idx, g[:, :, None] * w.t())
+        want_w = want_w + torch.sum(
+            torch.gather(x, 1, idx) * g[:, :, None], dim=0).t()
+    for dtype in (torch.int32, torch.int64):
+        got_x = grad_x.clone()
+        before = pooled_tail_grad.launches
+        got_w = pooled_tail_grad(x, w, amax.to(dtype), amin.to(dtype), gmax,
+                                 gmin, got_x, grad_w)
+        assert pooled_tail_grad.launches == before
+        assert torch.equal(got_x, want_x) and torch.equal(got_w, want_w)
+
+
+def test_pooled_tail_grad_checks():
+    x, w, amax, amin, gmax, gmin, grad_x, grad_w = _grad_case(
+        torch.Generator().manual_seed(2), 2, 5, 16)
+    args = [x, w, amax, amin, gmax, gmin, grad_x, grad_w]
+    for i, bad in ((0, x[:1]), (1, w[:, :8]), (2, amax.float()),
+                   (3, amin[:1]), (4, gmax[:, :3]), (5, gmin.t()),
+                   (6, grad_x[:, :4]), (7, grad_w.t())):
+        with pytest.raises(ValueError):
+            pooled_tail_grad(*args[:i], bad, *args[i + 1:])
+
+
+@pytest.mark.parametrize("c,zero", [(512, None), (256, None), (512, "min"),
+                                    (256, "max")])
+def test_linear_pool_reductions_grad_matches_jax_lpr_bwd(rng, c, zero):
+    """The whole max-pool backward against the JAX package's ``_lpr_bwd`` on
+    the same residuals (x, W, b, args, mean) and cotangents, at the widths
+    of a W3 column slice (1024 columns over 2 and 4 model ranks), with one
+    arg's cotangent all zero as the forward's where() makes it per
+    channel."""
+    jnp = pytest.importorskip("jax.numpy")
+    from points2surf_tpu.models import pointnet as jpn
+
+    x, w, bias = _inputs(rng, 6, 50, 128, c)
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, w, bias)]
+    out = _LinearPoolReductions.apply(*args, True)
+    cots = [rng.randn(*o.shape).astype(np.float32) for o in out]
+    if zero is not None:
+        cots[0 if zero == "max" else 1][:] = 0.0
+    got = torch.autograd.grad(out, args, [torch.from_numpy(g) for g in cots])
+    _, amax, _, amin, _, _ = pooled_tail_reductions(
+        *(a.detach() for a in args))
+    res = tuple(jnp.asarray(a) for a in (
+        x, w, bias, amax.numpy(), amin.numpy(), out[2].detach().numpy()))
+    want = jpn._lpr_bwd(None, True, True, res,
+                        (jnp.asarray(cots[0]), jnp.asarray(cots[1]), None,
+                         jnp.asarray(cots[2]), jnp.asarray(cots[3])))
+    for name, g, j in zip(("x", "w", "b"), got, want):
+        j = np.asarray(j)
+        np.testing.assert_allclose(g.numpy(), j, rtol=1e-4,
+                                   atol=1e-4 * np.abs(j).max(), err_msg=name)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -251,3 +362,120 @@ def test_pooled_tail_kernel_raises_on_misaligned_x(cuda_device):
     with pytest.raises(ValueError):
         pooled_tail_reductions(x, w, torch.zeros(32, device=cuda_device))
     assert pooled_tail_reductions.launches == before
+
+
+# (B, n, C): the max-pool train tails of p2s_max (batch 1001) and p2s_vanilla
+# (701), W3 column slices at batch 64, a tiny ragged case and a C past one
+# warp's ballot
+GRAD_SHAPES = [(1001, 1000, 1024), (1001, 300, 1024), (701, 1300, 1024),
+               (701, 1000, 1024), (701, 300, 1024), (64, 300, 512),
+               (64, 300, 256), (64, 300, 128), (3, 1, 7), (5, 129, 1000)]
+
+
+def _card_grad(device, b, n, c, kind):
+    t = _grad_case(torch.Generator(device=device).manual_seed(b + n + c), b,
+                   n, c, kind, device)
+    want_x = t[6].clone()
+    want_w = pooled_tail_grad_reference(*t[:6], want_x, t[7].clone())
+    got_x = t[6].clone()
+    before = pooled_tail_grad.launches
+    got_w = pooled_tail_grad(*t[:6], got_x, t[7].clone())
+    torch.cuda.synchronize()
+    assert pooled_tail_grad.launches == before + 1
+    return t, (got_x, got_w), (want_x, want_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", GRAD_SHAPES)
+@pytest.mark.parametrize("kind", ["mixed", "random"])
+def test_pooled_tail_grad_kernel_matches_plain(cuda_device, b, n, c, kind):
+    _, got, want = _card_grad(cuda_device, b, n, c, kind)
+    for name, g, r in zip(("grad_x", "grad_w"), got, want):
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(64, 300, 1024), (5, 129, 1000),
+                                   (3, 1, 7), (2, 4096, 2500)])
+@pytest.mark.parametrize("kind", ["one_point", "distinct", "zero_min"])
+def test_pooled_tail_grad_kernel_edge_args(cuda_device, b, n, c, kind):
+    # every channel on one point (one warp sums 2C entries), no two args on
+    # one point, one arg's cotangent all zero; C 2500 takes three passes of
+    # 1,024 channels
+    _, got, want = _card_grad(cuda_device, b, n, c, kind)
+    for name, g, r in zip(("grad_x", "grad_w"), got, want):
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c", [(1001, 1000, 1024), (701, 1300, 1024),
+                                   (64, 300, 256)])
+def test_pooled_tail_grad_kernel_is_deterministic(cuda_device, b, n, c):
+    t, got, _ = _card_grad(cuda_device, b, n, c, "mixed")
+    again_x = t[6].clone()
+    again_w = pooled_tail_grad(*t[:6], again_x, t[7].clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again_x) and torch.equal(got[1], again_w)
+
+
+@pytest.mark.cuda
+def test_pooled_tail_grad_kernel_raises(cuda_device):
+    t = list(_grad_case(torch.Generator(device=cuda_device).manual_seed(3),
+                        2, 10, 32, device=cuda_device))
+    before = pooled_tail_grad.launches
+    narrow = [t[0][..., :64].contiguous(), t[1][:64].contiguous(), *t[2:6],
+              t[6][..., :64].contiguous(), t[7][:64].contiguous()]
+    with pytest.raises(ValueError):
+        pooled_tail_grad(*narrow)
+    with pytest.raises(ValueError):  # the kernel is float32 only
+        pooled_tail_grad(*(a.double() if a.is_floating_point() else a
+                           for a in t))
+    # a contiguous view 4 bytes into its storage: the kernel loads float4s
+    x = torch.zeros(2 * 10 * 128 + 1, device=cuda_device)[1:].view(2, 10, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    with pytest.raises(ValueError):
+        pooled_tail_grad(x, *t[1:])
+    assert pooled_tail_grad.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point_stn,tails", [(True, 5), (False, 4)])
+def test_pooled_tail_grad_launches_per_train_step(cuda_device, point_stn,
+                                                  tails):
+    """One launch per max-pooled train tail: 5 per step of the vanilla model
+    (point STN, shared transformation), 4 of the max model."""
+    from points2surf_tpu_torch.data.shapes import bucket_size
+    from points2surf_tpu_torch.models.p2s import PointsToSurfModel
+    from points2surf_tpu_torch.ops import patches as tp
+    from points2surf_tpu_torch.train.trainer import make_train_step
+
+    cloud = np.load(os.path.join(
+        os.path.dirname(__file__), "..", "datasets", "abc_minimal", "04_pts",
+        "00011084_fddd53ce45f640f3ab922328_trimesh_019.xyz.npy")).astype(
+            np.float32)
+    n = len(cloud)
+    pts = np.zeros((bucket_size(n), 3), np.float32)
+    pts[:n] = cloud
+    pts = torch.from_numpy(pts).to(cuda_device)
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy((cloud[rng.choice(n, 64)] + 0.01 * rng.randn(64, 3))
+                         .astype(np.float32)).to(cuda_device)
+    gt = torch.from_numpy(rng.uniform(-0.05, 0.05, 64).astype(
+        np.float32)).to(cuda_device)
+    torch.manual_seed(0)
+    model = PointsToSurfModel(net_size_max=256, output_dim=2,
+                              use_point_stn=point_stn,
+                              shared_transformation=point_stn).to(cuda_device)
+    cfg = tp.PatchConfig(points_per_patch=300, sub_sample_size=1000)
+    step = make_train_step(model, ("imp_surf_magnitude", "imp_surf_sign"),
+                           patch_cfg=cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for run in (1, 2):  # the first builds or loads the kernels
+        before = pooled_tail_grad.launches
+        draws = tp.draw_batch(gen, 64, pts.shape[0], cfg, train=True,
+                              n_valid=n)
+        step.train_step_fused(pts, q, n, gt, draws)
+        torch.cuda.synchronize()
+        assert pooled_tail_grad.launches - before == tails, run
