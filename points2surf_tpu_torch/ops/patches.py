@@ -435,6 +435,7 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
     use_tiles = (not cfg.exact and not train and coherent and n > 2 * tile_m
                  and b >= 64)
     dense = not use_tiles
+    trace.count("extract.slots", b * k)
     if use_tiles:
         trace.count("extract.tiled")
         with trace.span("extract.tiles"):
@@ -452,6 +453,7 @@ def extract_patches(points: torch.Tensor, queries: torch.Tensor, n_valid,
         if dense:
             trace.count("extract.fallback")
     if dense:
+        trace.count("extract.dense_slots", b * k)
         with trace.span("extract.dense"):
             ids, pad = _dense_select(points, queries, n_valid, k, cfg, ball)
 
