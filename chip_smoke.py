@@ -144,6 +144,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -3223,6 +3224,21 @@ def _zero_transformers(torch, model):
     return model
 
 
+@contextlib.contextmanager
+def _eager_train_steps():
+    """Train steps run eagerly inside: a step that the checks instrument
+    with host copies (``_ArgRecorder``, ``_replaying_tail``) cannot be
+    captured in a CUDA graph (``train/trainer.TrainStep``)."""
+    from points2surf_tpu_torch.train import trainer
+
+    real = trainer.graph_engages
+    trainer.graph_engages = lambda batch: False
+    try:
+        yield
+    finally:
+        trainer.graph_engages = real
+
+
 class _ArgRecorder:
     """Keeps the max / min arg indices of every ``pooled_tail_reductions``
     call of the model (``models/pointnet``) while it is entered."""
@@ -3365,7 +3381,7 @@ def _parallel_steps(torch, device, job, world, lo, hi, starts=None):
     pts = job["pts"].to(device)
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     out = {"losses": [], "starts": []}
-    with _ArgRecorder(pn) as rec:
+    with _eager_train_steps(), _ArgRecorder(pn) as rec:
         for i in range(PARALLEL_STEPS):
             if starts is not None and starts[i] is not None:
                 model.load_state_dict(starts[i][0])

@@ -91,7 +91,6 @@ from points2surf_tpu_torch.ops.kernels.pooled_tail import (
     pooled_tail_grad, pooled_tail_reductions)
 from points2surf_tpu_torch.parallel.distributed import (
     data_size, gather_columns, global_sum, sum_input_grad)
-from points2surf_tpu_torch.utils import trace
 
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running statistic
 # elements of the (rows, n, C) fp32 temporaries of one bf16 eval-tail chunk
@@ -533,10 +532,8 @@ class QSTN(_STNTrunk):
 
     def forward(self, x: torch.Tensor):
         h = self.trunk(x)
-        with trace.blocking(h.device):  # a copy of host numbers
-            one = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=h.dtype,
-                               device=h.device)
-        quat = h + one
+        # the identity quaternion (1, 0, 0, 0), made on the device
+        quat = h + torch.eye(1, 4, dtype=h.dtype, device=h.device)
         return geometry.quat_to_rotmat(quat), quat
 
 

@@ -10,6 +10,13 @@ boundary ``step >= b`` (optax's ``piecewise_constant_schedule``, in
 float32 as optax computes it). The fused step runs train-mode patch
 extraction first.
 
+On one CUDA device the step after extraction is a CUDA graph: the
+forward, the losses, the backward and the SGD update, captured once per
+batch signature, activation dtype and learning rate and then replayed, so
+the host makes one launch where eager PyTorch makes some thousands
+(:class:`TrainStep`). The same kernels run in the same order; the graph
+only takes the launching of each off the host.
+
 :class:`Trainer` is the epoch loop of the reference
 (source/points_to_surf_train.py:167-534) on one device: the samplers and
 the train and test pipelines (``data/``), the fused step for batches from
@@ -55,10 +62,21 @@ from points2surf_tpu_torch.models.weights import (
     sgd_state_from_checkpoint,
     sgd_state_to_checkpoint,
 )
+from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+    pooled_tail_grad, pooled_tail_reductions)
 from points2surf_tpu_torch.ops.patches import PatchConfig, extract_patches
 from points2surf_tpu_torch.parallel import distributed, replicate, shard_batch
 from points2surf_tpu_torch.train import checkpoint as ckpt
 from points2surf_tpu_torch.utils import trace
+
+# live CUDA graphs a TrainStep keeps for one activation dtype and learning
+# rate (one per batch signature); steps of further signatures run eagerly
+MAX_GRAPHS = 4
+# the kernel launch counters a train step can move: a replay adds what its
+# capture launched, so they count the kernels that ran
+_LAUNCH_COUNTERS = ((pooled_tail_reductions, "launches"),
+                    (pooled_tail_reductions, "launches_bf16"),
+                    (pooled_tail_grad, "launches"))
 
 GREEN = "\033[92m"
 BLUE = "\033[94m"
@@ -139,6 +157,28 @@ class TrainStep:
     the same rows and the same draws, the column blocks' gradients are
     complete on their rank (``models/pointnet._column_parallel``), and the
     mean over the data ranks covers blocks and replicated parameters alike.
+
+    **CUDA graphs.** Where the batch is on a CUDA device and the process
+    runs no data or model axis (their collectives stay eager),
+    ``train_step`` replays a CUDA graph of itself: forward, losses,
+    backward, update and metrics. A graph is keyed by the batch's keys,
+    shapes and dtypes, the model's activation dtype and the step's learning
+    rate (the rate is a constant of the captured update). A batch
+    signature's first step at an activation dtype runs eagerly as its
+    warm-up; a key's next step is captured and replayed, every later one
+    replayed (so a new rate captures at once). The batch is copied into
+    the graph's inputs, and the losses and metrics returned are copies of
+    its outputs, so a later replay leaves them as they were. The graphs of
+    one activation dtype and rate are kept, at most ``MAX_GRAPHS``,
+    sharing one memory pool; a step of another dtype or rate drops them
+    (the rate only falls as the step count grows), and ``load_sgd_state``
+    drops them, since it replaces the momentum buffers they update. A CPU
+    batch, a data or model axis, ``eval_step`` and keys beyond the cap run
+    eagerly. Recorder:
+    ``train.graph_captures``, ``train.graph_replays`` (the captured step's
+    first run is a replay) and the span ``train.replay`` around the input
+    copies and the replay; the device time of a replay's launches falls
+    under ``train.replay``.
     """
 
     def __init__(self, model: torch.nn.Module, outputs, *, lr: float = 0.01,
@@ -155,10 +195,16 @@ class TrainStep:
         self.optimizer = torch.optim.SGD(model.parameters(), lr=lr,
                                          momentum=momentum)
         self.step = 0
+        self._graphs: dict = {}  # key -> _StepGraph, of one graph mode
+        self._graph_mode = None  # (activation dtype, learning rate)
+        self._warm: set = set()  # (signature, dtype) whose warm-up ran
+        self._pool = None  # the graphs' memory pool
 
     def load_sgd_state(self, buffers: dict, count: int | None) -> None:
         """Momentum buffers under the ``state_dict`` names (see
-        ``models.weights.sgd_state_from_checkpoint``) and the step count."""
+        ``models.weights.sgd_state_from_checkpoint``) and the step count.
+        Drops the step's CUDA graphs, which update the old buffers."""
+        self._drop_graphs()
         for name, p in self.model.named_parameters():
             self.optimizer.state[p]["momentum_buffer"] = (
                 buffers[name].to(device=p.device, dtype=p.dtype).clone())
@@ -198,7 +244,62 @@ class TrainStep:
             self.step += 1
 
     def train_step(self, batch: dict):
-        """One SGD step on ``batch``: (losses (n_losses,), metrics)."""
+        """One SGD step on ``batch``: (losses (n_losses,), metrics); a
+        replay of the step's CUDA graph where one engages (class
+        docstring)."""
+        graph = self._graph_for(batch)
+        if graph is None:
+            return self._eager_step(batch)
+        if not self.model.training:
+            self.model.train()
+        with trace.span("train.replay"):
+            out = graph.replay(batch)
+        trace.count("train.graph_replays")
+        self.step += 1
+        return out
+
+    def graph_key(self, batch: dict) -> tuple:
+        """The key of ``batch``'s graph: the batch's keys, shapes and
+        dtypes, the model's activation dtype and the step's learning
+        rate."""
+        return (tuple((k, tuple(v.shape), v.dtype)
+                      for k, v in sorted(batch.items())),
+                getattr(self.model, "act_dtype", None),
+                learning_rate(self.step, self.lr, self.boundaries))
+
+    def _graph_for(self, batch: dict):
+        """The graph to replay for ``batch``, captured now if this is its
+        key's second step; None where the step runs eagerly."""
+        if not graph_engages(batch):
+            return None
+        key = self.graph_key(batch)
+        if key[1:] != self._graph_mode:
+            self._drop_graphs()
+            self._graph_mode = key[1:]
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        if key[:2] not in self._warm:  # the warm-up does not need the rate
+            self._warm.add(key[:2])
+            return None
+        if len(self._graphs) >= MAX_GRAPHS:
+            return None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        step = self.step
+        graph = _StepGraph(self, batch, self._pool)
+        self.step = step  # update() counted the step it captured
+        trace.count("train.graph_captures")
+        self._graphs[key] = graph
+        return graph
+
+    def _drop_graphs(self) -> None:
+        """Drop every graph, and their pool: a pool lives only while a
+        graph holds it, so the next capture takes a new one."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _eager_step(self, batch: dict):
         losses, pred = self.forward_loss(batch)
         self.backward(losses)
         self.update()
@@ -237,6 +338,52 @@ class TrainStep:
         step: (losses, metrics)."""
         return self.train_step(self.extract_train_batch(
             points, queries, n_valid, gt, rng, small_cloud))
+
+
+def graph_engages(batch: dict) -> bool:
+    """Whether a train step on ``batch`` runs as a CUDA graph: every tensor
+    on a CUDA device, and no data or model axis (whose collectives stay
+    eager)."""
+    return (distributed.data_size() == 1 and distributed.model_size() == 1
+            and all(v.device.type == "cuda" for v in batch.values()))
+
+
+def _launch_counts() -> list:
+    return [getattr(f, name) for f, name in _LAUNCH_COUNTERS]
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph in the memory pool ``pool``:
+    its inputs (copies of the batch's tensors, outside the pool), its
+    outputs, the gradients its backward writes and the kernel launches it
+    holds."""
+
+    def __init__(self, steps: TrainStep, batch: dict, pool):
+        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+        for k, v in self.inputs.items():
+            v.copy_(batch[k])
+        before = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.losses, self.metrics = steps._eager_step(self.inputs)
+        self.launches = [b - a for a, b in zip(before, _launch_counts())]
+        for (f, name), n in zip(_LAUNCH_COUNTERS, self.launches):
+            setattr(f, name, getattr(f, name) - n)  # nothing ran yet
+        self.grads = [(p, p.grad) for p in steps.model.parameters()]
+
+    def replay(self, batch: dict):
+        """The step on ``batch``: (losses, metrics), copies of the graph's
+        outputs. The parameters' ``.grad`` are the graph's gradients."""
+        for k, v in self.inputs.items():
+            v.copy_(batch[k])
+        self.graph.replay()
+        for (f, name), n in zip(_LAUNCH_COUNTERS, self.launches):
+            setattr(f, name, getattr(f, name) + n)
+        for p, g in self.grads:
+            if p.grad is not g:
+                p.grad = g
+        return (self.losses.clone(),
+                {k: v.clone() for k, v in self.metrics.items()})
 
 
 def make_train_step(model: torch.nn.Module, outputs, **kwargs) -> TrainStep:
