@@ -60,11 +60,10 @@ the reconstruction of a 256^3 mesh:
    ``P2S_PALLAS_TAIL_PREC=default``; phases 1-8 run in fp32 mode, the
    port's default): each bf16 kernel against its plain bf16 version at
    phase 4's five chain call sites (batch 4096) and phase 6's five tails
-   (batch 1000), with times: the fused chain (``chain_fused``, which the
-   bf16 mode runs) and the split pair (``chain_head`` + ``chain_tail``)
-   timed in turn against the fused bound; the bf16 query at batch 4096
-   (queries/s, 5 fused launches per forward and none of the split pair)
-   and, over every grid-256 query, its sign agreement and max |diff|
+   (batch 1000), with times: the fused chain (``chain_fused``, the bf16
+   mode's one chain kernel) against its bound; the bf16 query at batch 4096
+   (queries/s, 5 fused launches per forward and none of the fp32 split
+   pair) and, over every grid-256 query, its sign agreement and max |diff|
    against fp32 mode; the bf16 train step at
    batch 1000 (patches/s, 5 bf16 launches per step) and one step at batch
    64 on the card against the CPU, both in bf16 mode; phase 8's trained
@@ -1772,10 +1771,25 @@ class _Bf16Mode:
 
 def _zero_launches(*fns) -> None:
     for f in fns:
-        f.launches = 0
-        f.launches_bf16 = 0
-        if hasattr(f, "launches_fused_bf16"):
-            f.launches_fused_bf16 = 0
+        for name in ("launches", "launches_bf16", "launches_fused_bf16"):
+            if hasattr(f, name):
+                setattr(f, name, 0)
+
+
+def _launch_counts() -> dict:
+    """The eval chain's and the train tail's launch counters, by kernel and
+    mode: the fp32 split pair, the fused bf16 chain and the tail in each
+    mode."""
+    from points2surf_tpu_torch.ops.kernels.chain_pool import (
+        chain_head, chain_pool)
+    from points2surf_tpu_torch.ops.kernels.pooled_tail import (
+        pooled_tail_reductions)
+
+    return {"chain_head": chain_head.launches,
+            "chain_pool": chain_pool.launches,
+            "chain_fused": chain_pool.launches_fused_bf16,
+            "pooled_tail": pooled_tail_reductions.launches,
+            "pooled_tail_bf16": pooled_tail_reductions.launches_bf16}
 
 
 def _chain_bf16_close(got, want):
@@ -1859,55 +1873,26 @@ def _bf16_tail_check(torch, x, w, bias, what, first=None):
 
 def phase_bf16_kernels(torch, device):
     """Phase 9, kernels: the fused chain (chain_fused, what chain_pool runs
-    in the bf16 mode), the split pair (chain_head, chain_tail) and
-    pooled_tail in the bf16 mode (pooled_tail_bf16.cu) against their plain
-    bf16 versions at the query path's chain call sites (batch BATCH) and
-    the train step's tails (batch TRAIN_BATCH; then ties at B = 37, and
-    ties and all-negative products at C = 1000), with times; the fused
-    chain and the split pair timed in turn, each against the fused bound.
-    Layer 3 takes the split head's own bf16 h2, so it and its plain version
-    see the same operands."""
+    in the bf16 mode) and pooled_tail in the bf16 mode (pooled_tail_bf16.cu)
+    against their plain bf16 versions at the query path's chain call sites
+    (batch BATCH) and the train step's tails (batch TRAIN_BATCH; then ties
+    at B = 37, and ties and all-negative products at C = 1000), with times;
+    the fused chain against its bound."""
     from points2surf_tpu_torch.ops.kernels.chain_pool import (
-        chain_head, chain_head_bf16_straddles, chain_head_reference,
-        chain_pool, chain_pool_reference, chain_tail, chain_tail_reference)
+        chain_pool, chain_pool_reference)
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
         pooled_tail_reductions, pooled_tail_reductions_reference)
 
     gen = torch.Generator().manual_seed(SEED + 9)
     dgen = torch.Generator(device=device).manual_seed(SEED + 10)
-    err = {"chain_head": 0.0, "chain_pool": 0.0, "chain": 0.0,
-           "chain_fused": 0.0, "pooled_tail": 0.0}
-    res = {"err": err, "straddles": 0, "h2_elements": 0}
+    err = {"chain_fused": 0.0, "pooled_tail": 0.0}
+    res = {"err": err}
     times = {}
     bf = dict(bf16_operands=True)
     for cin, n, _ in CHAIN_SITES:
         x = torch.randn((BATCH, n, cin), generator=dgen, device=device)
         layers = _random_chain(torch, gen, cin, device)
-        h2 = chain_head(x, layers[:2], **bf)
-        want = chain_head_reference(x, layers[:2], **bf)
-        torch.cuda.synchronize()
-        check(h2.dtype == torch.bfloat16, "chain_head bf16: h2 is not bf16")
-        e_h = float((h2.float() - want).abs().max())
-        differ = unexplained = 0
-        for i in range(0, BATCH, 512):  # the check's fp32 temporaries
-            d, u = chain_head_bf16_straddles(x[i:i + 512], layers[:2],
-                                             h2[i:i + 512])
-            differ, unexplained = differ + d, unexplained + u
-        del want
-        err["chain_head"] = max(err["chain_head"], e_h)
-        res["straddles"] += differ
-        res["h2_elements"] += h2.numel()
-        print(f"[bf16 kernel] chain_head B={BATCH} n={n} cin={cin}: h2 bf16; "
-              f"{differ} of {h2.numel()} elements differ from the plain "
-              f"version (rounding-boundary straddles, max abs err "
-              f"{e_h:.3e}), {unexplained} not explained by a straddle")
-        check(unexplained == 0, f"chain_head bf16 disagrees with its plain "
-                                f"version: B={BATCH} n={n} cin={cin}")
         for sym in ("max", "sum"):
-            got = chain_tail(h2, layers[2], sym_op=sym, **bf)
-            e_t, bad_t = _close(got, _chunked(torch, lambda v: (
-                chain_tail_reference(v, layers[2], sym_op=sym, **bf)), h2,
-                128), "chain_pool bf16 layer 3")
             # the fused kernel, through chain_pool as the paths call it
             got = chain_pool(x, layers, sym_op=sym, **bf)
             again = chain_pool(x, layers, sym_op=sym, **bf)
@@ -1919,76 +1904,35 @@ def phase_bf16_kernels(torch, device):
             want = _chunked(torch, lambda v: chain_pool_reference(
                 v, layers, sym_op=sym, **bf), x, 128)
             e_f, e_c, bad_c = _chain_bf16_close(got, want)
-            staged = chain_tail(h2, layers[2], sym_op=sym, **bf)
-            _, e_s, bad_s = _chain_bf16_close(staged, want)
-            err["chain_pool"] = max(err["chain_pool"], e_t)
-            err["chain"] = max(err["chain"], e_c, e_s)
             err["chain_fused"] = max(err["chain_fused"], e_f)
-            print(f"[bf16 kernel] chain_pool B={BATCH} n={n} cin={cin} "
-                  f"{sym}: layer 3 on the same bf16 h2 vs plain max_abs_err "
-                  f"{e_t:.3e}, {bad_t} outside rtol 1e-4 / atol "
-                  f"1e-4*max|ref|; whole chain vs plain max|err|/max|ref|: "
-                  f"chain_fused {e_c:.3e} (max_abs_err {e_f:.3e}), {bad_c} "
-                  f"outside rtol / atol 2^-8 x max|ref|, rerun "
-                  f"bit-identical; split pair {e_s:.3e}, {bad_s} outside")
-            check(bad_t == 0 and bad_c == 0 and bad_s == 0,
-                  f"the bf16 chain disagrees with its plain version: n={n} "
-                  f"cin={cin} {sym}")
-        # max pool, as the query path runs it: the fused kernel and the
-        # split pair in turn (fused, split, split, fused), the plain chain
-        # in row chunks
-        fused = lambda: chain_pool(x, layers, **bf)  # noqa: E731
-        split = lambda: chain_tail(  # noqa: E731
-            chain_head(x, layers[:2], **bf), layers[2], **bf)
-        f0, s0, s1, f1 = (_events_ms(torch, fn, 5)
-                          for fn in (fused, split, split, fused))
+            print(f"[bf16 kernel] chain_fused B={BATCH} n={n} cin={cin} "
+                  f"{sym}: whole chain vs plain max|err|/max|ref| {e_c:.3e} "
+                  f"(max_abs_err {e_f:.3e}), {bad_c} outside rtol / atol "
+                  f"2^-8 x max|ref|, rerun bit-identical")
+            check(bad_c == 0, f"the bf16 chain disagrees with its plain "
+                              f"version: n={n} cin={cin} {sym}")
+        # max pool, as the query path runs it; the plain chain in row chunks
         t = {
-            "chain": (f0 + f1) / 2,
-            "split": (s0 + s1) / 2,
+            "chain": _events_ms(torch, lambda: chain_pool(x, layers, **bf),
+                                5),
             "chain_plain": _events_ms(torch, lambda: _chunked(
                 torch, lambda v: chain_pool_reference(v, layers, **bf), x,
-                128), 2),
-            "head": _events_ms(torch, lambda: chain_head(x, layers[:2], **bf),
-                               5),
-            "tail": _events_ms(torch, lambda: chain_tail(h2, layers[2], **bf),
-                               5),
-            "head_plain": _events_ms(torch, lambda: chain_head_reference(
-                x, layers[:2], **bf), 2),
-            "tail_plain": _events_ms(torch, lambda: _chunked(
-                torch, lambda v: chain_tail_reference(v, layers[2], **bf), h2,
                 128), 2),
         }
         times[(cin, n)] = t
         print(f"[bf16 kernel] B={BATCH} cin={cin} n={n} max: chain_fused "
-              f"{t['chain']:.4f} ms ({f0:.4f}, {f1:.4f}), split pair "
-              f"{t['split']:.4f} ms ({s0:.4f}, {s1:.4f}), plain chain "
-              f"{t['chain_plain']:.4f} ms; chain_head {t['head']:.4f} ms vs "
-              f"plain {t['head_plain']:.4f}; layer 3 {t['tail']:.4f} ms vs "
-              f"plain {t['tail_plain']:.4f}")
-        del x, h2
+              f"{t['chain']:.4f} ms, plain chain {t['chain_plain']:.4f} ms")
+        del x
     tot = {k: sum(cnt * times[(cin, n)][k] for cin, n, cnt in CHAIN_SITES)
            for k in times[CHAIN_SITES[0][:2]]}
-    res["head_cost"] = [sum(cnt * _head_cost(BATCH, n, cin, 2)[i]
-                            for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
-    res["tail_cost"] = [sum(cnt * _tail_cost(BATCH, n, h2_bytes=2)[i]
-                            for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
     res["fused_cost"] = [sum(cnt * _fused_cost(BATCH, n, cin)[i]
                              for cin, n, cnt in CHAIN_SITES) for i in (0, 1)]
     res.update(tot)
-    b_head, _ = _bound(*res["head_cost"], PEAK_FLOPS_BF16)
-    b_tail, _ = _bound(*res["tail_cost"], PEAK_FLOPS_BF16)
     b_fused, by = _bound(*res["fused_cost"], PEAK_FLOPS_BF16)
     print(f"[bf16 kernel] five chains of one B={BATCH} forward (max): "
           f"chain_fused {tot['chain']:.4f} ms, "
           f"{b_fused / tot['chain']:.1%} of the {b_fused:.3f} ms bound (by "
-          f"{by}); split pair {tot['split']:.4f} ms, "
-          f"{b_fused / tot['split']:.1%} of it (fused "
-          f"{tot['split'] / tot['chain']:.2f}x faster); plain chain "
-          f"{tot['chain_plain']:.4f} ms; chain_head {tot['head']:.4f} ms "
-          f"(bound {b_head:.3f}), layer 3 {tot['tail']:.4f} ms (bound "
-          f"{b_tail:.3f}, {b_tail / tot['tail']:.1%}); plain "
-          f"{tot['head_plain']:.4f} + {tot['tail_plain']:.4f} ms; h2 "
-          f"straddles {res['straddles']} of {res['h2_elements']}")
+          f"{by}); plain chain {tot['chain_plain']:.4f} ms")
 
     gen = torch.Generator().manual_seed(SEED + 12)
     tails = {}
@@ -2082,11 +2026,6 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
 
     kernels = (chain_head, chain_pool, pooled_tail_reductions)
     launched = {}
-
-    def counts():
-        c = {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
-        c["chain_fused"] = chain_pool.launches_fused_bf16
-        return c
     pts_t = torch.from_numpy(pts_pad).to(device)
     fn = make_sdf_query_fn(model, OUTPUTS, cfg, fixed_radius=False)
     q_all = torch.from_numpy(queries).to(device)
@@ -2110,7 +2049,7 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
         d16, n_sweep = _sweep(torch, np, fn, pts_t, n, queries, SEED + 11,
                               device)
         t_16 = time.perf_counter() - t0
-    c = counts()
+    c = _launch_counts()
     n_batches = BF16_WARMUP + BF16_TIMED + n_sweep
     launched["query"] = c
     t0 = time.perf_counter()
@@ -2124,14 +2063,13 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
           f"sweep {t_32:.3f} s ({n_sweep} batches each, the same draws): "
           f"same sign {agree:.6%}, max |diff| {delta:.3e}")
     print(f"[bf16 query] launches over {n_batches} bf16 batches: {c} "
-          f"(expected chain_fused {5 * n_batches}, the split pair (fp32, "
-          f"bf16) (0, 0))")
+          f"(expected chain_fused {5 * n_batches}, the fp32 split pair 0)")
     check(bool(np.isfinite(d16).all()), "bf16 sweep: non-finite distances")
     check(c["chain_fused"] == 5 * n_batches,
           f"chain_fused: not 5 launches per bf16 forward: {c}")
     for name in ("chain_head", "chain_pool"):
-        check(c[name] == (0, 0), f"{name}: launched in a bf16 forward: "
-                                 f"{c[name]}")
+        check(c[name] == 0, f"{name}: launched in a bf16 forward: "
+                            f"{c[name]}")
 
     # the train step at batch TRAIN_BATCH in bf16 mode
     steps = make_train_step(copy.deepcopy(model).to(device), OUTPUTS,
@@ -2156,17 +2094,17 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
                 gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    c = counts()
+    c = _launch_counts()
     launched["train"] = c
     n_steps = BF16_WARMUP + BF16_TIMED
     print(f"[bf16 train] {TRAIN_BATCH * BF16_TIMED / dt:.1f} train patches/s "
           f"at batch {TRAIN_BATCH} with P2S_PALLAS_TAIL_PREC=default "
           f"({dt / BF16_TIMED * 1e3:.2f} ms/step host clock); last losses "
           f"{losses.tolist()}; pooled_tail launches (fp32, bf16) "
-          f"{c['pooled_tail_reductions']} over {n_steps} steps (expected "
-          f"(0, {5 * n_steps}))")
+          f"{(c['pooled_tail'], c['pooled_tail_bf16'])} over {n_steps} "
+          f"steps (expected (0, {5 * n_steps}))")
     check(bool(torch.isfinite(losses).all()), "non-finite bf16 train loss")
-    check(c["pooled_tail_reductions"] == (0, 5 * n_steps),
+    check((c["pooled_tail"], c["pooled_tail_bf16"]) == (0, 5 * n_steps),
           "pooled_tail: not 5 bf16 launches per bf16 train step")
     del steps
     tail_err = 0.0
@@ -2232,7 +2170,7 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
                 dists[mode], n_rec = _sweep(torch, np, fn_rec, rec_pts,
                                             drv["test_n"], rec_q, SEED + 14,
                                             device)
-            launched["reconstruction"] = counts()
+            launched["reconstruction"] = _launch_counts()
         else:
             dists[mode], _ = _sweep(torch, np, fn_rec, rec_pts, drv["test_n"],
                                     rec_q, SEED + 14, device)
@@ -2248,8 +2186,8 @@ def phase_bf16_paths(torch, np, device, cfg, model, pts_pad, n, queries,
               f"the {mode} mesh is empty, not finite or not watertight")
         meshes[mode] = (np.asarray(verts), faces)
     c = launched["reconstruction"]
-    check(c["chain_fused"] == 5 * n_rec and c["chain_head"] == (0, 0)
-          and c["chain_pool"] == (0, 0),
+    check(c["chain_fused"] == 5 * n_rec and c["chain_head"] == 0
+          and c["chain_pool"] == 0,
           f"reconstruction in bf16 mode: launches {c}, expected chain_fused "
           f"{5 * n_rec} and no split launch")
     agree, delta = _mode_agreement(np, dists["bf16"], dists["fp32"])
@@ -2535,12 +2473,12 @@ def _train_rate(torch, np, device, model, cfg, n, pts_pad, queries, tag,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n_steps = OPT_WARMUP + OPT_TIMED
-    launched = {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+    launched = _launch_counts()
     pps = TRAIN_BATCH * OPT_TIMED / dt
     print(f"[{tag}] {pps:.1f} train patches/s at batch {TRAIN_BATCH} "
           f"({OPT_TIMED} timed steps, {dt / OPT_TIMED * 1e3:.2f} ms/step host "
-          f"clock); last losses {losses.tolist()}; launches (fp32, bf16) over "
-          f"{n_steps} steps: {launched}")
+          f"clock); last losses {losses.tolist()}; launches over {n_steps} "
+          f"steps: {launched}")
     check(bool(torch.isfinite(losses).all()), f"{tag}: non-finite loss")
     return pps, launched, n_steps
 
@@ -2564,7 +2502,7 @@ def phase_uniform(torch, np, device, pts_pad, n, queries):
             torch, np, device, model, cfg, n, pts_pad, queries,
             f"uniform {name}")
         res["pps"][name] = pps
-        fp32, bf16 = launched["pooled_tail_reductions"]
+        fp32, bf16 = launched["pooled_tail"], launched["pooled_tail_bf16"]
         tails = 5 if variant.get("use_point_stn", True) else 4
         check(fp32 == tails * n_steps and bf16 == 0,
               f"uniform {name}: pooled_tail launched {launched}, expected "
@@ -2615,7 +2553,7 @@ def phase_bf16_act(torch, np, device, model, pts_pad, n, queries):
         batch = extract_patches(pts_t, q_all[:BATCH], n, gen, cfg=cfg)
         pred = m16(batch)
     torch.cuda.synchronize()
-    launched = {f.__name__: (f.launches, f.launches_bf16) for f in kernels}
+    launched = _launch_counts()
     check(dist.dtype == torch.float32 and bool(torch.isfinite(dist).all()),
           "bf16 activations: query distances not finite float32")
     m16_cpu = copy.deepcopy(m16).to(cpu)
@@ -2631,7 +2569,7 @@ def phase_bf16_act(torch, np, device, model, pts_pad, n, queries):
     flips = int(((torch.sign(pg[:, 1]) != torch.sign(pc[:, 1])) & sure).sum())
     print(f"[bf16 act query] {qps:.1f} queries/s at batch {BATCH} "
           f"({OPT_TIMED} timed batches, {dt / OPT_TIMED * 1e3:.2f} ms/batch "
-          f"host clock); launches (fp32, bf16) {launched}; the first "
+          f"host clock); launches {launched}; the first "
           f"{BF16_ACT_ROWS} rows of a batch on the CPU ({t_cpu:.1f} s): raw "
           f"output bf16, max|card - CPU| {err:.3e} = {err / scale:.3e} of "
           f"max|ref| (held at 32u = {32 * U_BF16:.4f}), {flips} sign flips "
@@ -2639,7 +2577,7 @@ def phase_bf16_act(torch, np, device, model, pts_pad, n, queries):
     check(pred.dtype == bf16, "bf16 activations: the output is not bf16")
     check(err <= 32 * U_BF16 * scale and flips == 0,
           "bf16 activations: the query differs between card and CPU")
-    check(all(v == (0, 0) for v in launched.values()),
+    check(not any(launched.values()),
           f"bf16 activations launched a kernel in the query: {launched}")
     res = {"qps": qps}
 
@@ -2653,7 +2591,7 @@ def phase_bf16_act(torch, np, device, model, pts_pad, n, queries):
     tcfg = _train_cfg()
     pps, launched, _ = _train_rate(torch, np, device, m0, tcfg, n, pts_pad,
                                    queries, "bf16 act train")
-    check(all(v == (0, 0) for v in launched.values()),
+    check(not any(launched.values()),
           f"bf16 activations launched a kernel in training: {launched}")
     res["pps"] = pps
     b = SLICE_TRAIN_BATCH
@@ -3953,9 +3891,7 @@ def _tp_worker(rank: str, world: str, work: str) -> int:
                 else:
                     os.environ[k] = v
     res["bf16_launches"] = (chain_pool.launches_fused_bf16,
-                            pooled_tail_reductions.launches_bf16,
-                            chain_head.launches_bf16,
-                            chain_pool.launches_bf16)
+                            pooled_tail_reductions.launches_bf16)
 
     # each kernel against its plain version at this rank's column-slice
     # call sites, in both modes
@@ -4058,13 +3994,12 @@ def _tp_grid(torch, np, device, tmp, card, pts_pad, n, queries, data,
 
     # launches: 5 chains per fp32 forward (chain_head and chain_pool) and 5
     # tails per fp32 step, over the checked and the 2 x TP_TIMED timed
-    # runs; in the bf16 modes 5 chain_fused and 5 pooled_tail_bf16 and no
-    # launch of the split pair
+    # runs; in the bf16 modes 5 chain_fused and 5 pooled_tail_bf16
     runs = 1 + 2 * TP_TIMED
     for r_ in ranks:
         check(r_["checked_launches"] == (5, 5, 5)
               and r_["launches"] == (5 * runs,) * 3
-              and r_["bf16_launches"] == (5, 5, 0, 0),
+              and r_["bf16_launches"] == (5, 5),
               f"{tag}: launches {r_['checked_launches']} / "
               f"{r_['launches']} / bf16 {r_['bf16_launches']}, not 5 per "
               f"forward and step")
@@ -4284,16 +4219,9 @@ def main() -> int:
         drv = phase_driver(torch, np, device, tmp)
         mlp_launches += mlp_maxpool.launches
         t9 = time.perf_counter()
-        from points2surf_tpu_torch.ops.kernels.chain_pool import (
-            chain_head, chain_pool)
-        from points2surf_tpu_torch.ops.kernels.pooled_tail import (
-            pooled_tail_reductions)
-
-        bf16_runs = {f.__name__: f.launches_bf16
-                     for f in (chain_head, chain_pool, pooled_tail_reductions)}
-        bf16_runs["chain_fused"] = chain_pool.launches_fused_bf16
-        check(not any(bf16_runs.values()),
-              f"a bf16 kernel launched in phases 1-8: {bf16_runs}")
+        c = _launch_counts()
+        check(c["chain_fused"] == 0 and c["pooled_tail_bf16"] == 0,
+              f"a bf16 kernel launched in phases 1-8: {c}")
         bf = phase_bf16_kernels(torch, device)
         bfl, fused_site_err, tail_site_err = phase_bf16_paths(
             torch, np, device, cfg, model, pts_pad, n, queries, drv, tmp)
@@ -4323,11 +4251,9 @@ def main() -> int:
     # batch BATCH; pooled_tail: the five conv3 tails of one train step;
     # pooled_tail_grad: their backward's one-hot terms (fp32 FMA, replaces
     # no TPU kernel); mlp_maxpool: MLP_SHAPES[1]; the *_bf16 entries the same in the bf16
-    # mode (phase 9), bound at the bf16 peak. The bf16 chain runs as
-    # chain_fused on every path, so the split pair (chain_head_bf16,
-    # chain_pool_bf16: checked and timed beside it) launches 0 times there;
-    # chain_fused_bf16's max_abs_err takes the bf16 query's and
-    # reconstruction's call sites too, pooled_tail_bf16's the bf16 train
+    # mode (phase 9), bound at the bf16 peak: the bf16 chain is chain_fused
+    # on every path; chain_fused_bf16's max_abs_err takes the bf16 query's
+    # and reconstruction's call sites too, pooled_tail_bf16's the bf16 train
     # step's. No single PyTorch call
     # computes any of these functions, so library_ms is null. launches sums
     # the paths (query phase 4, train phase 6, mesh phase 7, driver phase 8;
@@ -4367,18 +4293,12 @@ def main() -> int:
                         "tp": tp["launches"]["pooled_tail"]},
         "pooled_tail_grad": {"train": grad_launches},
         "mlp_maxpool": {"all": mlp_launches},
-        "chain_head_bf16": {
-            "query": bfl["query"]["chain_head"][1],
-            "reconstruction": bfl["reconstruction"]["chain_head"][1]},
-        "chain_pool_bf16": {
-            "query": bfl["query"]["chain_pool"][1],
-            "reconstruction": bfl["reconstruction"]["chain_pool"][1]},
         "chain_fused_bf16": {
             "query": bfl["query"]["chain_fused"],
             "reconstruction": bfl["reconstruction"]["chain_fused"],
             "tp": tp["launches"]["chain_fused_bf16"]},
         "pooled_tail_bf16": {
-            "train": bfl["train"]["pooled_tail_reductions"][1],
+            "train": bfl["train"]["pooled_tail_bf16"],
             "tp": tp["launches"]["pooled_tail_bf16"]},
     }
     entries = (
@@ -4402,12 +4322,6 @@ def main() -> int:
         ("mlp_maxpool", "mlp_maxpool.cu", "encoder_tail.py:52",
          mlp["max_abs_err"], mlp["ms"], mlp["plain_ms"], mlp_flop,
          mlp_bytes),
-        ("chain_head_bf16", "chain_head.cu", "chain_kernel.py:187",
-         bf["err"]["chain_head"], bf["head"], bf["head_plain"],
-         *bf["head_cost"]),
-        ("chain_pool_bf16", "chain_pool.cu", "chain_kernel.py:187",
-         bf["err"]["chain_pool"], bf["tail"], bf["tail_plain"],
-         *bf["tail_cost"]),
         ("chain_fused_bf16", "chain_fused.cu", "chain_kernel.py:187",
          max(bf["err"]["chain_fused"], fused_site_err,
              tp["err"]["chain_fused"]), bf["chain"],

@@ -6,13 +6,10 @@
 //
 // h2 = relu(L2(relu(L1(x)))) comes from chain_head.cu; the two kernels
 // together replace the TPU kernel points2surf_tpu/ops/pallas/chain_kernel.py
-// (_chain_pool, :187, reached through chain_pool). Two numerics classes, as
-// there (P2S_EVAL_CHAIN_PREC): fp32 (highest), h2 fp32 and 3xTF32 products
-// on the tensor cores (hopper_mma.cuh), ~2^-21 of each product short of
-// fp32; and bf16 operands (default there), h2 stored as bf16 by
-// chain_head.cu, W3 rounded to the nearest bf16 (ties to even), one bf16
-// wgmma per k16 step, fp32 accumulation. The affine, the relu and the pools
-// are fp32 in both.
+// (_chain_pool, :187, reached through chain_pool) in its fp32 class
+// (P2S_EVAL_CHAIN_PREC=highest there; the bf16 class is chain_fused.cu):
+// 3xTF32 products on the tensor cores (hopper_mma.cuh), ~2^-21 of each
+// product short of fp32; the affine, the relu and the pools are fp32.
 //
 // What bounds it on an H100: arithmetic. A query forward's five chains do
 // 2 n (Cin 64 + 64 128 + 128 Cout) FLOP per row and chain, 4.54 TFLOP per
@@ -20,9 +17,7 @@
 // fp32-class work that 3xTF32 gets from the 495 TFLOP/s dense TF32 peak
 // that is 27.5 ms, against ~0.8 ms to read the inputs once. The SIMT fp32
 // kernel this replaces ran near 27 TFLOP/s, well under the 67 TFLOP/s that
-// the fp32 pipes could give at best. In bf16, layer 3's 4.19 TFLOP per
-// batch is 4.23 ms at the 989 TFLOP/s dense bf16 peak, against 1.22 ms to
-// read the bf16 h2 (4.09 GB) once.
+// the fp32 pipes could give at best.
 //
 // Design: mlp_maxpool.cu's, generalised (the W3^T hi/lo prologue, the
 // 3xTF32 chunk product and the helpers are hopper_mma.cuh). grid = column
@@ -35,15 +30,11 @@
 // accumulator gets fmaf(acc, a3, c3) and the optional relu before it is
 // pooled, so a negative scale needs no special case; rows >= n are masked
 // to -inf for max, to 0 for sum (TMA's zero rows would otherwise win a max
-// or add relu(c3)). The bf16 mode streams bf16 h2 chunks of 64 columns
-// (the same 128-byte swizzled rows) against a resident bf16 W3^T tile (32
-// KB, from bf16_weights_kernel) and issues four wgmma k16 per chunk
-// (mma_chunk_bf16) on the tile as TMA wrote it. Max may split the point
-// axis when batch * column tiles is short of the SM count (an atomic max on
-// the float's bits: order-free, so deterministic); sum never splits, and its
-// per-thread, shuffle and per-warp orders are fixed, so it is deterministic
-// too. 231,480 bytes of shared memory in fp32 (84,024 in bf16), one block
-// per SM.
+// or add relu(c3)). Max may split the point axis when batch * column tiles
+// is short of the SM count (an atomic max on the float's bits: order-free,
+// so deterministic); sum never splits, and its per-thread, shuffle and
+// per-warp orders are fixed, so it is deterministic too. 231,480 bytes of
+// shared memory, one block per SM.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -54,58 +45,42 @@
 
 namespace {
 
-// W3^T stays resident: a block's column tile (fp32: hi and lo), every K
-// chunk of k <= 128; only h2 streams through the ring.
+// W3^T stays resident: a block's column tile, hi and lo, every K chunk of
+// k <= 128; only h2 streams through the ring.
 constexpr int K_MAX = 128;
 constexpr int AC_BYTES = 2 * BN * 4;          // the tile's a3, then c3
 constexpr int BARS_BYTES = (2 * STAGES + 1) * 8;
 
-// Shared-memory plan of each mode: the K chunk, the resident W^T (fp32: hi
-// chunks then lo chunks), one ring stage and the bytes TMA brings into it.
-template <bool kBf16>
-struct Plan {
-  static constexpr int CHUNK_K = BK;
-  static constexpr int WRES_BYTES = 2 * (K_MAX / BK) * W_BYTES;
-  static constexpr int STAGE_BYTES = 2 * X_BYTES;  // h2 chunk (raw, hi), lo
-  static constexpr int TX_BYTES = X_BYTES;
-};
-template <>
-struct Plan<true> {
-  static constexpr int CHUNK_K = BK16;
-  static constexpr int WRES_BYTES = (K_MAX / BK16) * WB_BYTES;
-  static constexpr int STAGE_BYTES = XB_BYTES;  // a bf16 h2 chunk
-  static constexpr int TX_BYTES = XB_BYTES;
-};
+// Shared-memory plan: the resident W^T (hi chunks then lo chunks), one ring
+// stage (an h2 chunk, split in place into its hi part, then its lo part)
+// and the bytes TMA brings into it.
+constexpr int WRES_BYTES = 2 * (K_MAX / BK) * W_BYTES;
+constexpr int STAGE_BYTES = 2 * X_BYTES;
+constexpr int TX_BYTES = X_BYTES;
 
 // + 1024: the swizzled tiles need 1024-byte alignment, the base has 16
-template <bool kBf16>
-constexpr int smem_bytes() {
-  return Plan<kBf16>::WRES_BYTES + STAGES * Plan<kBf16>::STAGE_BYTES +
-         AC_BYTES + BARS_BYTES + 1024;
-}
-static_assert(smem_bytes<false>() <= 232448, "shared memory over the limit");
-static_assert(RED_BYTES <= STAGES * Plan<true>::STAGE_BYTES &&
-                  RED_BYTES <= STAGES * Plan<false>::STAGE_BYTES,
-              "red aliases the ring");
+constexpr int SMEM_BYTES =
+    WRES_BYTES + STAGES * STAGE_BYTES + AC_BYTES + BARS_BYTES + 1024;
+static_assert(SMEM_BYTES <= 232448, "shared memory over the limit");
+static_assert(RED_BYTES <= STAGES * STAGE_BYTES, "red aliases the ring");
 
-// w_a_map: W3^T hi (fp32) or W3^T bf16; w_b_map: W3^T lo (fp32 only)
-template <bool kMax, bool kRelu, bool kBf16>
+// w_hi_map / w_lo_map: W3^T's tf32 hi and lo parts
+template <bool kMax, bool kRelu>
 __global__ void __launch_bounds__(THREADS, 1)
 chain_pool_kernel(const __grid_constant__ CUtensorMap h_map,
-                  const __grid_constant__ CUtensorMap w_a_map,
-                  const __grid_constant__ CUtensorMap w_b_map, int n,
+                  const __grid_constant__ CUtensorMap w_hi_map,
+                  const __grid_constant__ CUtensorMap w_lo_map, int n,
                   int kp, int cout, int col_tiles, int splits,
                   int slabs_per_split, const float* __restrict__ a3,
                   const float* __restrict__ c3, float* __restrict__ out) {
-  using P = Plan<kBf16>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* w_res = smem;  // fp32: hi chunks, then lo chunks
-  uint8_t* w_lo = smem + P::WRES_BYTES / 2;
-  uint8_t* ring = smem + P::WRES_BYTES;
+  uint8_t* w_res = smem;  // hi chunks, then lo chunks
+  uint8_t* w_lo = smem + WRES_BYTES / 2;
+  uint8_t* ring = smem + WRES_BYTES;
   float* red = reinterpret_cast<float*>(ring);  // after the last slab
-  float* ac = reinterpret_cast<float*>(ring + STAGES * P::STAGE_BYTES);
+  float* ac = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(ac + 2 * BN);
   uint64_t* empty = full + STAGES;
   uint64_t* w_full = empty + STAGES;
@@ -118,7 +93,7 @@ chain_pool_kernel(const __grid_constant__ CUtensorMap h_map,
   const int n_slabs = (n + BM - 1) / BM;
   const int slab0 = split * slabs_per_split;
   const int slab1 = min(n_slabs, slab0 + slabs_per_split);
-  const int chunks = (kp + P::CHUNK_K - 1) / P::CHUNK_K;
+  const int chunks = (kp + BK - 1) / BK;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -138,27 +113,19 @@ chain_pool_kernel(const __grid_constant__ CUtensorMap h_map,
 
   if (tid >= CONSUMERS) {  // producer warp: one thread issues every load
     if (tid == CONSUMERS) {
-      if (kBf16) {
-        mbar_expect_tx(w_full, chunks * WB_BYTES);
-        for (int k = 0; k < chunks; ++k) {
-          tma_load_2d(w_res + k * WB_BYTES, &w_a_map, w_full, k * BK16,
-                      col0);
-        }
-      } else {
-        mbar_expect_tx(w_full, 2 * chunks * W_BYTES);
-        for (int k = 0; k < chunks; ++k) {
-          tma_load_2d(w_res + k * W_BYTES, &w_a_map, w_full, k * BK, col0);
-          tma_load_2d(w_lo + k * W_BYTES, &w_b_map, w_full, k * BK, col0);
-        }
+      mbar_expect_tx(w_full, 2 * chunks * W_BYTES);
+      for (int k = 0; k < chunks; ++k) {
+        tma_load_2d(w_res + k * W_BYTES, &w_hi_map, w_full, k * BK, col0);
+        tma_load_2d(w_lo + k * W_BYTES, &w_lo_map, w_full, k * BK, col0);
       }
       int it = 0;
       for (int s = slab0; s < slab1; ++s) {
         for (int k = 0; k < chunks; ++k, ++it) {
           const int st = it % STAGES;
           mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[st], P::TX_BYTES);
-          tma_load_3d(ring + st * P::STAGE_BYTES, &h_map, &full[st],
-                      k * P::CHUNK_K, s * BM, b);
+          mbar_expect_tx(&full[st], TX_BYTES);
+          tma_load_3d(ring + st * STAGE_BYTES, &h_map, &full[st], k * BK,
+                      s * BM, b);
         }
       }
     }
@@ -184,13 +151,9 @@ chain_pool_kernel(const __grid_constant__ CUtensorMap h_map,
     for (int k = 0; k < chunks; ++k, ++it) {
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
-      uint8_t* base = ring + st * P::STAGE_BYTES;
-      if (kBf16) {
-        mma_chunk_bf16(acc, base, w_res + k * WB_BYTES, g);
-      } else {
-        mma_chunk(acc, base, base + X_BYTES, w_res + k * W_BYTES,
-                  w_lo + k * W_BYTES, g, t);
-      }
+      uint8_t* base = ring + st * STAGE_BYTES;
+      mma_chunk(acc, base, base + X_BYTES, w_res + k * W_BYTES,
+                w_lo + k * W_BYTES, g, t);
       mbar_arrive(&empty[st]);
     }
     // this thread's rows: r and r + 8 (acc[4 j + e] and acc[4 j + 2 + e])
@@ -255,79 +218,71 @@ chain_pool_kernel(const __grid_constant__ CUtensorMap h_map,
   }
 }
 
-template <bool kMax, bool kRelu, bool kBf16>
+template <bool kMax, bool kRelu>
 cudaError_t launch(const CUtensorMap (&maps)[3], unsigned blocks,
                    cudaStream_t st, int n, int kp, int cout, int col_tiles,
                    int splits, int per_split, const float* a3,
                    const float* c3, float* out) {
-  chain_pool_kernel<kMax, kRelu, kBf16>
-      <<<blocks, THREADS, smem_bytes<kBf16>(), st>>>(
-          maps[0], maps[1], maps[2], n, kp, cout, col_tiles, splits,
-          per_split, a3, c3, out);
+  chain_pool_kernel<kMax, kRelu><<<blocks, THREADS, SMEM_BYTES, st>>>(
+      maps[0], maps[1], maps[2], n, kp, cout, col_tiles, splits, per_split,
+      a3, c3, out);
   return cudaGetLastError();
 }
 
-template <bool kMax, bool kRelu, bool kBf16>
+template <bool kMax, bool kRelu>
 cudaError_t allow_smem_one() {
-  return cudaFuncSetAttribute(chain_pool_kernel<kMax, kRelu, kBf16>,
+  return cudaFuncSetAttribute(chain_pool_kernel<kMax, kRelu>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<kBf16>());
+                              SMEM_BYTES);
 }
 
-// the shared-memory attribute of all eight instantiations
+// the shared-memory attribute of all four instantiations
 cudaError_t allow_smem() {
-  const cudaError_t errs[8] = {
-      allow_smem_one<true, false, false>(), allow_smem_one<true, true, false>(),
-      allow_smem_one<false, false, false>(),
-      allow_smem_one<false, true, false>(), allow_smem_one<true, false, true>(),
-      allow_smem_one<true, true, true>(), allow_smem_one<false, false, true>(),
-      allow_smem_one<false, true, true>()};
+  const cudaError_t errs[4] = {
+      allow_smem_one<true, false>(), allow_smem_one<true, true>(),
+      allow_smem_one<false, false>(), allow_smem_one<false, true>()};
   for (const cudaError_t e : errs) {
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
-template <bool kBf16>
 cudaError_t launch_mode(bool sym_max, bool relu_last,
                         const CUtensorMap (&maps)[3], unsigned blocks,
                         cudaStream_t st, int n, int kp, int cout,
                         int col_tiles, int splits, int per_split,
                         const float* a3, const float* c3, float* out) {
   if (sym_max) {
-    return relu_last ? launch<true, true, kBf16>(maps, blocks, st, n, kp,
-                                                 cout, col_tiles, splits,
-                                                 per_split, a3, c3, out)
-                     : launch<true, false, kBf16>(maps, blocks, st, n, kp,
-                                                  cout, col_tiles, splits,
-                                                  per_split, a3, c3, out);
+    return relu_last ? launch<true, true>(maps, blocks, st, n, kp, cout,
+                                          col_tiles, splits, per_split, a3,
+                                          c3, out)
+                     : launch<true, false>(maps, blocks, st, n, kp, cout,
+                                           col_tiles, splits, per_split, a3,
+                                           c3, out);
   }
-  return relu_last ? launch<false, true, kBf16>(maps, blocks, st, n, kp, cout,
-                                                col_tiles, splits, per_split,
-                                                a3, c3, out)
-                   : launch<false, false, kBf16>(maps, blocks, st, n, kp,
-                                                 cout, col_tiles, splits,
-                                                 per_split, a3, c3, out);
+  return relu_last ? launch<false, true>(maps, blocks, st, n, kp, cout,
+                                         col_tiles, splits, per_split, a3,
+                                         c3, out)
+                   : launch<false, false>(maps, blocks, st, n, kp, cout,
+                                          col_tiles, splits, per_split, a3,
+                                          c3, out);
 }
 
 }  // namespace
 
 // On device `dev` and its stream `stream`: out (batch, cout) =
 // pool_{p < n} act(h[b, p, :] @ w * a + c), max if sym_max else sum, relu
-// if relu_last. h is (batch, n, k), k <= 128, base 16-byte aligned; w (k,
-// cout); a, c (cout,), all fp32. bf16 == 0: h fp32, k a multiple of 4,
-// fp32-class products; scratch holds 2 * cout * kp + batch * cout floats,
-// kp = k rounded up to 8: the split W^T, then out. bf16 != 0: h bf16, k a
-// multiple of 8, w rounded to bf16; scratch holds cout * kp bf16, kp = k
-// rounded up to 16 (W^T), then batch * cout floats (out). scratch 16-byte
-// aligned. All contiguous. Returns a cudaError_t; 0 means launched.
+// if relu_last. h is (batch, n, k), k <= 128 a multiple of 4, base 16-byte
+// aligned; w (k, cout); a, c (cout,), all fp32; fp32-class products.
+// scratch holds 2 * cout * kp + batch * cout floats, kp = k rounded up to
+// 8: the split W^T, then out; 16-byte aligned. All contiguous. Returns a
+// cudaError_t; 0 means launched.
 extern "C" int p2s_chain_pool(int dev, const void* h, int batch, int n, int k,
                               const void* w, const void* a, const void* c,
-                              int cout, int sym_max, int relu_last, int bf16,
+                              int cout, int sym_max, int relu_last,
                               void* scratch, void* stream) {
-  const int kp = bf16 ? (k + 15) / 16 * 16 : (k + 7) / 8 * 8;
-  if (batch < 1 || n < 1 || k < 4 || k % (bf16 ? 8 : 4) != 0 ||
-      kp > K_MAX || cout < 1 ||
+  const int kp = (k + 7) / 8 * 8;
+  if (batch < 1 || n < 1 || k < 4 || k % 4 != 0 || kp > K_MAX || cout < 1 ||
       reinterpret_cast<uintptr_t>(h) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -361,41 +316,23 @@ extern "C" int p2s_chain_pool(int dev, const void* h, int batch, int n, int k,
   if (splits == 0) return static_cast<int>(cudaErrorInvalidValue);
 
   CUtensorMap maps[3];
-  float* out;
+  float* w_hi = static_cast<float*>(scratch);
+  float* w_lo = w_hi + (size_t)cout * kp;
+  float* out = w_lo + (size_t)cout * kp;
+  if (!encode_ring_maps(maps, h, batch, n, k, w_hi, w_lo, cout, kp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // the prologue fills out with -inf only where split blocks combine in it
   const dim3 prep_grid((kp + 31) / 32, (cout + 31) / 32);
   const size_t fill = splits > 1 ? (size_t)batch * cout : 0;
-  if (bf16) {
-    __nv_bfloat16* w_bf = static_cast<__nv_bfloat16*>(scratch);
-    out = reinterpret_cast<float*>(w_bf + (size_t)cout * kp);
-    CUtensorMap two[2];
-    if (!encode_bf16_maps(two, h, batch, n, k, w_bf, cout, kp)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    maps[0] = two[0];
-    maps[1] = maps[2] = two[1];
-    bf16_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
-        static_cast<const float*>(w), k, cout, kp, w_bf, out, fill);
-  } else {
-    float* w_hi = static_cast<float*>(scratch);
-    float* w_lo = w_hi + (size_t)cout * kp;
-    out = w_lo + (size_t)cout * kp;
-    if (!encode_ring_maps(maps, h, batch, n, k, w_hi, w_lo, cout, kp)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    split_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
-        static_cast<const float*>(w), k, cout, kp, w_hi, w_lo, out, fill);
-  }
+  split_weights_kernel<<<prep_grid, dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(w), k, cout, kp, w_hi, w_lo, out, fill);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = (unsigned)(tiles * splits);
   const float* a3 = static_cast<const float*>(a);
   const float* c3 = static_cast<const float*>(c);
-  err = bf16 ? launch_mode<true>(sym_max, relu_last, maps, blocks, st, n, kp,
-                                 cout, col_tiles, splits, per_split, a3, c3,
-                                 out)
-             : launch_mode<false>(sym_max, relu_last, maps, blocks, st, n,
-                                  kp, cout, col_tiles, splits, per_split, a3,
-                                  c3, out);
+  err = launch_mode(sym_max, relu_last, maps, blocks, st, n, kp, cout,
+                    col_tiles, splits, per_split, a3, c3, out);
   return static_cast<int>(err);
 }

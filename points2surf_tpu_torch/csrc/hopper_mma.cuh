@@ -2,8 +2,8 @@
 // chain_pool.cu, pooled_tail.cu, chain_fused.cu, pooled_tail_bf16.cu): TMA
 // loads and mbarriers, the 3xTF32 wgmma product of one K chunk on 128-byte
 // swizzled K-major tiles, the W^T hi/lo prologue, and the host's tensor maps
-// and grid split; for the bf16-operand mode, the bf16 wgmma product and the
-// bf16 W^T prologue.
+// and grid split; for the bf16-operand kernels (chain_fused.cu,
+// pooled_tail_bf16.cu), the bf16 wgmma and the bf16 W^T prologue.
 //
 // Each kernel: a block owns one column tile of BN outputs and walks
 // 128-point slabs of one batch row. A slab arrives as K chunks of 32 fp32
@@ -18,13 +18,11 @@
 // short of fp32 (the dropped lo.lo term, the tf32 truncation of lo).
 //
 // bf16-operand mode (P2S_*_PREC=default in the JAX package): a 128-byte
-// swizzled K-major row holds 64 bf16, so one K chunk of a bf16 tile is 64
-// wide and takes four wgmma m64n128k16 of bf16 x bf16 into the same fp32
-// accumulators. One k16 step is 32 bytes, as one tf32 k8 step is, so the
-// descriptors, the ring and the TMA helpers are shared. Operands are
-// rounded to the nearest bf16, ties to even (__float2bfloat16_rn, XLA's
-// astype), not with the cvt.rna of the tf32 split; products of bf16 values
-// are exact in fp32.
+// swizzled K-major row holds 64 bf16, and one wgmma m64n128k16 step of bf16
+// x bf16 into fp32 accumulators is 32 bytes, as one tf32 k8 step is, so the
+// descriptors and the TMA helpers are shared. Operands are rounded to the
+// nearest bf16, ties to even (__float2bfloat16_rn, XLA's astype), not with
+// the cvt.rna of the tf32 split; products of bf16 values are exact in fp32.
 
 #pragma once
 
@@ -46,9 +44,6 @@ constexpr int CONSUMERS = 256;       // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int X_BYTES = BM * BK * 4;   // an activation chunk
 constexpr int W_BYTES = BN * BK * 4;   // a W^T chunk, hi or lo
-constexpr int BK16 = 64;               // bf16 K chunk: one 128-byte row
-constexpr int XB_BYTES = BM * BK16 * 2;  // a bf16 activation chunk
-constexpr int WB_BYTES = BN * BK16 * 2;  // a bf16 W^T chunk
 constexpr int RED_BYTES = 8 * BN * 4;  // the 8 consumer warps' pools
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -117,11 +112,6 @@ __device__ __forceinline__ float tf32_rna(float v) {
   return __uint_as_float(r);
 }
 
-// round to the nearest bf16 (ties to even), as a float
-__device__ __forceinline__ float bf16_rne(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // two floats rounded to bf16 (ties to even), lo at the lower address
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
@@ -177,7 +167,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
 // d (64 x 128, fp32) += A (64 x 16, bf16) B (16 x 128, bf16), both from
 // shared memory, both K-major (no transpose); scale_d == 0 overwrites d
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a,
-                                           uint64_t desc_b, int scale_d = 1) {
+                                           uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -333,26 +323,6 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[64], uint8_t* x,
   fence_acc(acc);
 }
 
-// Consumer warpgroup g, one 64-wide K chunk in bf16: acc += x . W^T with its
-// 64 rows of the bf16 tile xb (BM x 64, swizzled) and the chunk's bf16 W^T
-// tile wb (BN x 64, swizzled): four wgmma m64n128k16, also over k past kp
-// (TMA's zeros). Same accumulator layout as mma_chunk.
-__device__ __forceinline__ void mma_chunk_bf16(float (&acc)[64],
-                                               const uint8_t* xb,
-                                               const uint8_t* wb, int g) {
-  const uint64_t da = sw128_desc(xb + g * (XB_BYTES / 2));
-  const uint64_t db = sw128_desc(wb);
-  fence_acc(acc);
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-  for (int kk = 0; kk < BK16 / 16; ++kk) {
-    wgmma_bf16(acc, da + 2 * kk, db + 2 * kk);  // 32 bytes further each
-  }
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_acc(acc);
-}
-
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                    cuuint32_t, void*, const cuuint64_t*,
                                    const cuuint64_t*, const cuuint32_t*,
@@ -414,25 +384,6 @@ bool encode_ring_maps(CUtensorMap (&maps)[3], const void* x, int batch, int n,
   return encode(&maps[0], x, 3, x_dims, x_strides, x_box) &&
          encode(&maps[1], w_hi, 2, w_dims, w_strides, w_box) &&
          encode(&maps[2], w_lo, 2, w_dims, w_strides, w_box);
-}
-
-// The bf16 mode's two tensor maps: the bf16 activation (batch, n, x_cols)
-// by (64-column rows of 128 bytes, BM, 1) boxes; W^T bf16 (cout, kp) by
-// (BK16, BN) boxes. Row strides must be multiples of 16 bytes.
-bool encode_bf16_maps(CUtensorMap (&maps)[2], const void* x, int batch, int n,
-                      int x_cols, const void* w_bf, int cout, int kp) {
-  const cuuint64_t x_dims[3] = {(cuuint64_t)x_cols, (cuuint64_t)n,
-                                (cuuint64_t)batch};
-  const cuuint64_t x_strides[2] = {(cuuint64_t)x_cols * 2,
-                                   (cuuint64_t)x_cols * 2 * n};
-  const cuuint32_t x_box[3] = {BK16, BM, 1};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)kp, (cuuint64_t)cout};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)kp * 2};
-  const cuuint32_t w_box[2] = {BK16, BN};
-  return encode(&maps[0], x, 3, x_dims, x_strides, x_box,
-                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) &&
-         encode(&maps[1], w_bf, 2, w_dims, w_strides, w_box,
-                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // Splits of the point axis so that tiles * splits blocks cover `sms` SMs

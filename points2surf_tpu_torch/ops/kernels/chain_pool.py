@@ -12,8 +12,9 @@ axis. A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
 the kernels, built from the repository's sources with ``nvcc`` at their first
 use, or raises. The one-layer encoder tail is ``mlp_maxpool.py``.
 
-Two numerics classes, as in the JAX kernel; ``bf16_operands=None`` reads
-``P2S_EVAL_CHAIN_PREC`` at call time (``device.bf16_operands``):
+Two numerics classes, as in the JAX kernel; :func:`chain_pool`'s
+``bf16_operands=None`` reads ``P2S_EVAL_CHAIN_PREC`` at call time
+(``device.bf16_operands``):
 
 * unset or ``highest``: fp32 operands (3xTF32 for layer 3). On the card the
   chain runs in two stages: :func:`chain_head` writes h2 =
@@ -22,15 +23,12 @@ Two numerics classes, as in the JAX kernel; ``bf16_operands=None`` reads
   (``wgmma`` fed by TMA);
 * ``default``: every operand of every product (x, h1, h2 and each W_i) is
   rounded to bf16 (nearest even), products accumulate in fp32, the affines,
-  relus and pools stay fp32. On the card :func:`chain_fused` runs all three
-  layers and the pool in one kernel on bf16 ``wgmma``, h1 and h2 in
-  registers. :func:`chain_head` and :func:`chain_tail` keep their bf16 mode
-  (h2 stored as bf16) as public stages.
+  relus and pools stay fp32. That class has one kernel, :func:`chain_fused`:
+  all three layers and the pool on bf16 ``wgmma``, h1 and h2 in registers.
 
 Unset means fp32 here; in the JAX package it means bf16. Launches count in
-``chain_head.launches`` / ``chain_pool.launches`` (fp32), their
-``launches_bf16`` (the stages in bf16) and ``chain_pool.launches_fused_bf16``
-(the fused kernel).
+``chain_head.launches`` / ``chain_pool.launches`` (the fp32 stages) and
+``chain_pool.launches_fused_bf16`` (the fused kernel).
 """
 
 from __future__ import annotations
@@ -119,56 +117,20 @@ def chain_pool_reference(x: torch.Tensor, layers, *, sym_op: str = "max",
     return torch.amax(h, dim=1) if sym_op == "max" else torch.sum(h, dim=1)
 
 
-def chain_head_reference(x: torch.Tensor, layers, *,
-                         bf16_operands: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of :func:`chain_head`, in x's dtype; with
-    ``bf16_operands`` it returns h2 rounded to bf16 (the operand layer 3
-    takes)."""
+def chain_head_reference(x: torch.Tensor, layers) -> torch.Tensor:
+    """Plain PyTorch version of :func:`chain_head`, in x's dtype."""
     h = x
     for w, a, c in layers:
-        if bf16_operands:
-            h, w = round_bf16(h), round_bf16(w)
         h = torch.relu(torch.matmul(h, w) * a + c)
-    return round_bf16(h) if bf16_operands else h
-
-
-def chain_head_bf16_straddles(x: torch.Tensor, layers,
-                              h2: torch.Tensor) -> tuple[int, int]:
-    """How a bf16 ``h2`` (the kernel's) departs from the plain version.
-
-    Two fp32 sums of the same bf16 products in other orders differ by
-    rounding noise, and where that noise spans a bf16 rounding boundary the
-    two round apart: by one bf16 ulp for an h2 element, or, for an h1
-    operand, by whatever that ulp makes of its point's h2 row. Returns
-    (elements of ``h2`` that differ from the plain version, those of them
-    that neither lie within one bf16 ulp plus the sum's noise nor belong to
-    a point with an h1 operand within its noise of a boundary). The noise
-    of a sum is taken as 2^-20 of the sum of its terms' magnitudes.
-    """
-    (w1, a1, c1), (w2, a2, c2) = layers
-    xr, w1r, w2r = round_bf16(x), round_bf16(w1), round_bf16(w2)
-    pre1 = torch.matmul(xr, w1r) * a1 + c1
-    noise1 = 2.0 ** -20 * torch.matmul(xr.abs(), w1r.abs()) * a1.abs()
-    near1 = (round_bf16(torch.relu(pre1 + noise1))
-             != round_bf16(torch.relu(pre1 - noise1))).any(dim=-1)
-    h1 = round_bf16(torch.relu(pre1))
-    want = round_bf16(torch.relu(torch.matmul(h1, w2r) * a2 + c2))
-    noise2 = 2.0 ** -20 * torch.matmul(h1, w2r.abs()) * a2.abs()
-    got = h2.to(want.dtype)
-    diff = (got - want).abs()
-    one_ulp = 2.0 ** -7 * torch.maximum(got.abs(), want.abs())
-    explained = (diff <= one_ulp + noise2) | near1[..., None]
-    return int((diff > 0).sum()), int((~explained).sum())
+    return h
 
 
 def chain_tail_reference(h: torch.Tensor, layer, *, sym_op: str = "max",
-                         relu_last: bool = False,
-                         bf16_operands: bool = False) -> torch.Tensor:
+                         relu_last: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`chain_tail` (materializes the
-    (B, n, Cout) activation), in the layer's dtype."""
-    return chain_pool_reference(h.to(layer[0].dtype), (layer,),
-                                sym_op=sym_op, relu_last=relu_last,
-                                bf16_operands=bf16_operands)
+    (B, n, Cout) activation)."""
+    return chain_pool_reference(h, (layer,), sym_op=sym_op,
+                                relu_last=relu_last)
 
 
 def fold_conv_bn(cbias, scale, bbias, mean, var, eps: float = 1e-5):
@@ -181,13 +143,12 @@ def fold_conv_bn(cbias, scale, bbias, mean, var, eps: float = 1e-5):
     return a, c
 
 
-def _check(x: torch.Tensor, layers, count: int,
-           dtype: torch.dtype = torch.float32) -> None:
+def _check(x: torch.Tensor, layers, count: int) -> None:
     if len(layers) != count:
         raise ValueError(f"expected {count} (W, a, c) layers, got "
                          f"{len(layers)}")
-    if x.dim() != 3 or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous {dtype} (B, n, Cin) "
+    if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 (B, n, Cin) "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     if x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"empty batch or point axis: {tuple(x.shape)}")
@@ -217,20 +178,17 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
     return True
 
 
-def chain_head(x: torch.Tensor, layers, *,
-               bf16_operands: bool | None = None) -> torch.Tensor:
-    """Layers 1-2 of the chain: relu(L2(relu(L1(x)))), pointwise.
+def chain_head(x: torch.Tensor, layers) -> torch.Tensor:
+    """Layers 1-2 of the chain in the fp32 class: relu(L2(relu(L1(x)))),
+    pointwise.
 
     x: (B, n, Cin) float32; layers: two (W, a, c) triples. Returns
-    (B, n, C2): float32, or bfloat16 in the bf16 mode (``bf16_operands``,
-    None reads ``P2S_EVAL_CHAIN_PREC``; unset: fp32). On CUDA the kernel
-    takes Cin <= 64 and widths 64 -> 128.
+    (B, n, C2) float32. On CUDA the kernel takes Cin <= 64 and widths
+    64 -> 128.
     """
     _check(x, layers, 2)
-    bf16 = _resolve_mode(bf16_operands, PREC_ENV)
     if not _on_card(x, "chain_head"):
-        h2 = chain_head_reference(x, layers, bf16_operands=bf16)
-        return h2.to(torch.bfloat16) if bf16 else h2  # exact: h2 is rounded
+        return chain_head_reference(x, layers)
     (w1, a1, c1), (w2, a2, c2) = layers
     b, n, cin = x.shape
     if (cin > KERNEL_CIN_MAX or w1.shape[1] != KERNEL_C1
@@ -239,50 +197,44 @@ def chain_head(x: torch.Tensor, layers, *,
             f"CUDA chain_head takes Cin <= {KERNEL_CIN_MAX} and widths "
             f"{KERNEL_C1}/{KERNEL_C2}, got {cin}/{w1.shape[1]}/{w2.shape[1]}")
     h2 = torch.empty((b, n, KERNEL_C2), device=x.device,
-                     dtype=torch.bfloat16 if bf16 else torch.float32)
+                     dtype=torch.float32)
     dev = x.device.index
     with trace.span("kernel.chain"):
         rc = _head_library().p2s_chain_head(
             dev, x.data_ptr(), b * n, cin,
             w1.data_ptr(), a1.data_ptr(), c1.data_ptr(), KERNEL_C1,
             w2.data_ptr(), a2.data_ptr(), c2.data_ptr(), KERNEL_C2,
-            int(bf16), h2.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
+            h2.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
     check_launch("chain_head", rc)
-    if bf16:
-        chain_head.launches_bf16 += 1
-    else:
-        chain_head.launches += 1
+    chain_head.launches += 1
     return h2
 
 
 def chain_tail(h: torch.Tensor, layer, *, sym_op: str = "max",
-               relu_last: bool = False,
-               bf16_operands: bool | None = None) -> torch.Tensor:
-    """Layer 3 of the chain and the pool: pool_n(act(L3(h))).
+               relu_last: bool = False) -> torch.Tensor:
+    """Layer 3 of the chain and the pool in the fp32 class:
+    pool_n(act(L3(h))).
 
-    h: (B, n, 128), what :func:`chain_head` returns in the same mode:
-    float32, or bfloat16 in the bf16 mode (``bf16_operands``, None reads
-    ``P2S_EVAL_CHAIN_PREC``); another dtype raises, nothing is cast.
-    layer: one (W, a, c) triple. Returns (B, Cout) float32. A launch
-    counts in ``chain_pool.launches`` / ``chain_pool.launches_bf16`` (the
-    kernel of ``csrc/chain_pool.cu``).
+    h: (B, n, 128) float32, what :func:`chain_head` returns; another dtype
+    raises, nothing is cast. layer: one (W, a, c) triple. Returns (B, Cout)
+    float32. A launch counts in ``chain_pool.launches`` (the kernel of
+    ``csrc/chain_pool.cu``).
     """
     if sym_op not in ("max", "sum"):
         raise ValueError(f"unsupported sym_op: {sym_op}")
-    bf16 = _resolve_mode(bf16_operands, PREC_ENV)
-    _check(h, (layer,), 1, torch.bfloat16 if bf16 else torch.float32)
+    _check(h, (layer,), 1)
     if not _on_card(h, "chain_tail"):
         return chain_tail_reference(h, layer, sym_op=sym_op,
-                                    relu_last=relu_last, bf16_operands=bf16)
+                                    relu_last=relu_last)
     w, a, c = layer
     b, n, k = h.shape
     if k != KERNEL_C2 or h.data_ptr() % 16:
         raise ValueError(f"CUDA chain_tail takes a 16-byte aligned "
                          f"(B, n, {KERNEL_C2}) input, got {tuple(h.shape)}")
     cout = w.shape[1]
-    # One allocation: W^T (Cout, 128), as bf16 (half a float each) or split
-    # into tf32 hi and lo parts, then out.
-    wt_floats = cout * k // 2 if bf16 else 2 * cout * k
+    # One allocation: W^T (Cout, 128) split into tf32 hi and lo parts, then
+    # out.
+    wt_floats = 2 * cout * k
     buf = torch.empty(wt_floats + b * cout, device=h.device,
                       dtype=torch.float32)
     dev = h.device.index
@@ -290,12 +242,9 @@ def chain_tail(h: torch.Tensor, layer, *, sym_op: str = "max",
         rc = _tail_library().p2s_chain_pool(
             dev, h.data_ptr(), b, n, k, w.data_ptr(), a.data_ptr(),
             c.data_ptr(), cout, int(sym_op == "max"), int(relu_last),
-            int(bf16), buf.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
+            buf.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
     check_launch("chain_pool", rc)
-    if bf16:
-        chain_pool.launches_bf16 += 1
-    else:
-        chain_pool.launches += 1
+    chain_pool.launches += 1
     return buf[wt_floats:].view(b, cout)
 
 
@@ -368,25 +317,22 @@ def chain_pool(x: torch.Tensor, layers, *, sym_op: str = "max",
                                     relu_last=relu_last, bf16_operands=bf16)
     if bf16:
         return chain_fused(x, layers, sym_op=sym_op, relu_last=relu_last)
-    return chain_tail(chain_head(x, layers[:2], bf16_operands=False),
-                      layers[2], sym_op=sym_op, relu_last=relu_last,
-                      bf16_operands=False)
+    return chain_tail(chain_head(x, layers[:2]), layers[2], sym_op=sym_op,
+                      relu_last=relu_last)
 
 
 chain_head.launches = 0
-chain_head.launches_bf16 = 0
 # launches of the layer-3 kernel, by chain_tail, and of the fused kernel
 chain_pool.launches = 0
-chain_pool.launches_bf16 = 0
 chain_pool.launches_fused_bf16 = 0
 
 
 _HEAD_ENTRY_POINTS = (
     ("p2s_chain_head", (CI, VP, ctypes.c_longlong, CI, VP, VP, VP, CI, VP,
-                        VP, VP, CI, CI, VP, VP)),
+                        VP, VP, CI, VP, VP)),
 )
 _TAIL_ENTRY_POINTS = (
-    ("p2s_chain_pool", (CI, VP, CI, CI, CI, VP, VP, VP, CI, CI, CI, CI, VP,
+    ("p2s_chain_pool", (CI, VP, CI, CI, CI, VP, VP, VP, CI, CI, CI, VP,
                         VP)),
 )
 _FUSED_ENTRY_POINTS = (

@@ -43,7 +43,6 @@ import torch
 from points2surf_tpu_torch.device import bf16_operands, round_bf16
 from points2surf_tpu_torch.ops.kernels.chain_pool import (
     chain_head,
-    chain_head_bf16_straddles,
     chain_head_reference,
     chain_pool,
     chain_pool_reference,
@@ -162,49 +161,40 @@ def test_chain_bf16_matches_jax(rng, b, n, cin, sym_op):
                                     interpret=True, bf16_operands=True))
     np.testing.assert_allclose(got.numpy(), want, rtol=5e-4,
                                atol=5e-4 * float(np.abs(want).max()))
-    # the two stages the card runs, composed: h2 is bf16, and layer 3 of
-    # the plain versions sees the same operands as the whole plain chain
-    h2 = chain_head(xt, tl[:2], bf16_operands=True)
-    assert h2.dtype == torch.bfloat16 and h2.shape == (b, n, 128)
-    torch.testing.assert_close(h2.float(), chain_head_reference(
-        xt, tl[:2], bf16_operands=True), rtol=0, atol=0)
-    staged = chain_tail(h2, tl[2], sym_op=sym_op, bf16_operands=True)
-    torch.testing.assert_close(staged, got, rtol=1e-6, atol=1e-6)
     # the bf16 mode is another numerics class than the fp32 one
     fp32 = chain_pool(xt, tl, sym_op=sym_op, bf16_operands=False)
     assert float((fp32 - got).abs().max()) > 1e-5
 
 
-def test_chain_head_straddles_tell_rounding_from_faults(rng):
-    """The check the card's chain_head is held to: an h2 from sums in
-    another order (here float64, then rounded) differs only by straddles of
-    bf16 rounding boundaries; a wrong element is not explained."""
-    x = torch.from_numpy((rng.randn(16, 300, 3) * 0.5).astype(np.float32))
-    tl = _torch_layers(_chain_layers(rng, 3))[:2]
-    h2 = chain_head_reference(x, tl, bf16_operands=True)
-    assert chain_head_bf16_straddles(x, tl, h2) == (0, 0)
-    other = chain_head_reference(
-        x.double(), tuple(tuple(t.double() for t in layer) for layer in tl),
-        bf16_operands=True)
-    differ, unexplained = chain_head_bf16_straddles(x, tl, other)
-    assert differ > 0 and unexplained == 0
-    wrong = h2.clone()
-    wrong[3, 7, 11] += 0.05
-    assert chain_head_bf16_straddles(x, tl, wrong) == (1, 1)
-
-
 def test_chain_tail_rejects_the_other_dtype(rng):
+    """The split stages are the fp32 class only: chain_tail refuses a bf16
+    h2 and chain_pool a bf16 x, in either mode; nothing is cast."""
     x = torch.from_numpy(rng.randn(2, 5, 3).astype(np.float32))
     tl = _torch_layers(_chain_layers(rng, 3))
-    h32 = chain_head(x, tl[:2], bf16_operands=False)
-    h16 = chain_head(x, tl[:2], bf16_operands=True)
-    assert h32.dtype == torch.float32 and h16.dtype == torch.bfloat16
+    h2 = chain_head(x, tl[:2])
+    assert h2.dtype == torch.float32
     with pytest.raises(ValueError):
-        chain_tail(h32, tl[2], bf16_operands=True)
-    with pytest.raises(ValueError):
-        chain_tail(h16, tl[2], bf16_operands=False)
-    with pytest.raises(ValueError):
-        chain_pool(x.to(torch.bfloat16), tl, bf16_operands=True)
+        chain_tail(h2.to(torch.bfloat16), tl[2])
+    for mode in (False, True):
+        with pytest.raises(ValueError):
+            chain_pool(x.to(torch.bfloat16), tl, bf16_operands=mode)
+
+
+def test_chain_stages_are_fp32_in_every_mode(monkeypatch, rng):
+    """P2S_EVAL_CHAIN_PREC selects chain_pool's class and leaves the split
+    stages alone: chain_head returns a float32 h2, and chain_tail of it
+    equals the fp32 plain version, whatever the variable says."""
+    x = torch.from_numpy(rng.randn(2, 9, 3).astype(np.float32))
+    tl = _torch_layers(_chain_layers(rng, 3))
+    want = chain_tail_reference(chain_head_reference(x, tl[:2]), tl[2])
+    for value in (None, "highest", "default"):
+        if value is None:
+            monkeypatch.delenv("P2S_EVAL_CHAIN_PREC", raising=False)
+        else:
+            monkeypatch.setenv("P2S_EVAL_CHAIN_PREC", value)
+        h2 = chain_head(x, tl[:2])
+        assert h2.dtype == torch.float32
+        assert torch.equal(chain_tail(h2, tl[2]), want)
 
 
 # (c) the eval forward under P2S_EVAL_CHAIN -------------------------------
@@ -305,10 +295,6 @@ def test_mode_from_environment(monkeypatch, rng, value, want):
     tl = _torch_layers(_chain_layers(rng, 3))
     assert torch.equal(chain_pool(xc, tl), chain_pool_reference(
         xc, tl, bf16_operands=want))
-    h2 = chain_head(xc, tl[:2])
-    assert h2.dtype == (torch.bfloat16 if want else torch.float32)
-    assert torch.equal(chain_tail(h2, tl[2]),
-                       chain_tail_reference(h2, tl[2], bf16_operands=want))
 
 
 @pytest.mark.parametrize("value", ["", "HIGHEST", "bfloat16", "float32"])
@@ -389,49 +375,6 @@ def _card_chain(device, b, n, cin, kind="random"):
         w3, a3, c3 = layers[2]
         layers[2] = (-np.abs(w3) - 1e-3, a3, c3)
     return torch.from_numpy(x).to(device), _torch_layers(layers, device)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,cin", [(64, 1300, 3), (64, 1000, 64),
-                                     (8, 129, 64), (1, 77, 3)])
-def test_chain_head_bf16_kernel_matches_plain(cuda_device, b, n, cin):
-    x, tl = _card_chain(cuda_device, b, n, cin)
-    before = chain_head.launches, chain_head.launches_bf16
-    got = chain_head(x, tl[:2], bf16_operands=True)
-    torch.cuda.synchronize()
-    assert (chain_head.launches, chain_head.launches_bf16) == (
-        before[0], before[1] + 1)
-    assert got.dtype == torch.bfloat16 and got.shape == (b, n, 128)
-    # the plain version rounds the same values; where the two orders of
-    # summing them straddle a bf16 rounding boundary, they round apart
-    differ, unexplained = chain_head_bf16_straddles(x, tl[:2], got)
-    assert unexplained == 0 and differ <= 1e-3 * got.numel(), differ
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,cin,kind", [
-    (8, 1300, 3, "random"), (8, 1000, 64, "random"), (8, 300, 64, "random"),
-    (8, 129, 64, "random"), (1, 1300, 3, "random"), (8, 77, 64, "negative"),
-    (1, 1000, 64, "negative")])
-@pytest.mark.parametrize("sym_op", ["max", "sum"])
-@pytest.mark.parametrize("relu_last", [False, True])
-def test_chain_tail_bf16_kernel_matches_plain(cuda_device, b, n, cin, kind,
-                                              sym_op, relu_last):
-    x, tl = _card_chain(cuda_device, b, n, cin, kind)
-    h2 = chain_head_reference(x, tl[:2], bf16_operands=True).to(
-        torch.bfloat16)
-    before = chain_pool.launches, chain_pool.launches_bf16
-    got = chain_tail(h2, tl[2], sym_op=sym_op, relu_last=relu_last,
-                     bf16_operands=True)
-    again = chain_tail(h2, tl[2], sym_op=sym_op, relu_last=relu_last,
-                       bf16_operands=True)
-    torch.cuda.synchronize()
-    assert (chain_pool.launches, chain_pool.launches_bf16) == (
-        before[0], before[1] + 2)
-    assert torch.equal(got, again)
-    _assert_close(got, chain_tail_reference(h2, tl[2], sym_op=sym_op,
-                                            relu_last=relu_last,
-                                            bf16_operands=True))
 
 
 @pytest.mark.cuda

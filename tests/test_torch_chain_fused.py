@@ -154,13 +154,13 @@ def test_fused_wrapper_checks(rng, case):
 def test_cpu_chain_pool_bf16_takes_the_plain_version(rng):
     x = torch.from_numpy(rng.randn(3, 40, 3).astype(np.float32))
     tl = _torch_layers(_layers(rng, 3))
-    before = (chain_pool.launches_fused_bf16, chain_pool.launches_bf16,
-              chain_head.launches_bf16)
+    before = (chain_pool.launches_fused_bf16, chain_pool.launches,
+              chain_head.launches)
     got = chain_pool(x, tl, bf16_operands=True)
     assert torch.equal(got, chain_pool_reference(x, tl, bf16_operands=True))
     assert torch.equal(got, chain_fused(x, tl))
-    assert (chain_pool.launches_fused_bf16, chain_pool.launches_bf16,
-            chain_head.launches_bf16) == before
+    assert (chain_pool.launches_fused_bf16, chain_pool.launches,
+            chain_head.launches) == before
 
 
 # (c) the launch plan --------------------------------------------------------
@@ -256,13 +256,13 @@ def _assert_chain_close(got, want):
 def test_fused_kernel_matches_plain(cuda_device, b, n, cin, kind, sym_op,
                                     relu_last):
     x, tl = _card_chain(cuda_device, b, n, cin, kind)
-    before = (chain_pool.launches_fused_bf16, chain_pool.launches_bf16,
-              chain_head.launches_bf16)
+    before = (chain_pool.launches_fused_bf16, chain_pool.launches,
+              chain_head.launches)
     got = chain_fused(x, tl, sym_op=sym_op, relu_last=relu_last)
     again = chain_fused(x, tl, sym_op=sym_op, relu_last=relu_last)
     torch.cuda.synchronize()
-    assert (chain_pool.launches_fused_bf16, chain_pool.launches_bf16,
-            chain_head.launches_bf16) == (before[0] + 2, *before[1:])
+    assert (chain_pool.launches_fused_bf16, chain_pool.launches,
+            chain_head.launches) == (before[0] + 2, *before[1:])
     assert got.shape == (b, 1024) and bool(torch.isfinite(got).all())
     assert torch.equal(got, again)  # reruns are bit-identical
     _assert_chain_close(got, chain_pool_reference(
@@ -318,12 +318,11 @@ def test_bf16_eval_forward_launches_only_the_fused_kernel(cuda_device,
              for k, v in batch.items()}
     monkeypatch.setenv("P2S_EVAL_CHAIN_PREC", "default")
     counters = ((chain_pool, "launches_fused_bf16"),
-                (chain_pool, "launches_bf16"), (chain_pool, "launches"),
-                (chain_head, "launches_bf16"), (chain_head, "launches"))
+                (chain_pool, "launches"), (chain_head, "launches"))
     before = [getattr(f, a) for f, a in counters]
     with torch.inference_mode():
         pred = model(batch)
     torch.cuda.synchronize()
     after = [getattr(f, a) for f, a in counters]
-    assert [a - b for a, b in zip(after, before)] == [5, 0, 0, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [5, 0, 0]
     assert pred.shape == (8, 2) and bool(torch.isfinite(pred).all())

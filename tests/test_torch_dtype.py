@@ -332,7 +332,10 @@ def test_bf16_launches_no_kernel(cuda_device):
     from points2surf_tpu_torch.ops.kernels.pooled_tail import (
         pooled_tail_reductions)
 
-    kernels = (chain_head, chain_pool, pooled_tail_reductions)
+    counters = ((chain_head, "launches"), (chain_pool, "launches"),
+                (chain_pool, "launches_fused_bf16"),
+                (pooled_tail_reductions, "launches"),
+                (pooled_tail_reductions, "launches_bf16"))
     rng = np.random.RandomState(0)
     batch = {k: torch.from_numpy(v).to(cuda_device)
              for k, v in _batch(rng, 16).items()}
@@ -345,8 +348,8 @@ def test_bf16_launches_no_kernel(cuda_device):
     for dtype in (BF16, None):
         model = TorchP2S(net_size_max=128, output_dim=2, dtype=dtype,
                          shared_transformation=True).to(cuda_device)
-        for f in kernels:
-            f.launches = f.launches_bf16 = 0
+        for f, a in counters:
+            setattr(f, a, 0)
         steps = tt.make_train_step(model, OUTPUTS)
         losses, _ = steps.train_step(batch)
         with torch.inference_mode():
@@ -354,5 +357,5 @@ def test_bf16_launches_no_kernel(cuda_device):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(losses).all())
         assert bool(torch.isfinite(pred.float()).all())
-        counts[dtype] = sum(f.launches + f.launches_bf16 for f in kernels)
+        counts[dtype] = sum(getattr(f, a) for f, a in counters)
     assert counts[BF16] == 0 and counts[None] == 5 + 5 + 5
