@@ -1,9 +1,10 @@
-// Hopper machinery shared by the port's pooled-layer kernels (mlp_maxpool.cu,
-// chain_pool.cu, pooled_tail.cu, chain_fused.cu, pooled_tail_bf16.cu): TMA
-// loads and mbarriers, the 3xTF32 wgmma product of one K chunk on 128-byte
-// swizzled K-major tiles, the W^T hi/lo prologue, and the host's tensor maps
-// and grid split; for the bf16-operand kernels (chain_fused.cu,
-// pooled_tail_bf16.cu), the bf16 wgmma and the bf16 W^T prologue.
+// Hopper machinery shared by the port's tensor-core kernels (mlp_maxpool.cu,
+// chain_head.cu, chain_pool.cu, pooled_tail.cu, chain_fused.cu,
+// pooled_tail_bf16.cu): TMA loads and mbarriers, the 3xTF32 wgmma product
+// of one K chunk on 128-byte swizzled K-major tiles, the W^T hi/lo
+// prologue, and the host's tensor maps and grid split; for the bf16-operand
+// kernels (chain_fused.cu, pooled_tail_bf16.cu), the bf16 wgmma and the
+// bf16 W^T prologue.
 //
 // Each kernel: a block owns one column tile of BN outputs and walks
 // 128-point slabs of one batch row. A slab arrives as K chunks of 32 fp32

@@ -16,11 +16,12 @@ Two numerics classes, as in the JAX kernel; :func:`chain_pool`'s
 ``bf16_operands=None`` reads ``P2S_EVAL_CHAIN_PREC`` at call time
 (``device.bf16_operands``):
 
-* unset or ``highest``: fp32 operands (3xTF32 for layer 3). On the card the
-  chain runs in two stages: :func:`chain_head` writes h2 =
-  relu(L2(relu(L1(x)))) (B, n, 128) to device memory (SIMT), and
-  :func:`chain_tail` runs L3, its affine and the pool on the tensor cores
-  (``wgmma`` fed by TMA);
+* unset or ``highest``: fp32-class products (3xTF32 on the tensor cores:
+  operands split into tf32 hi and lo, hi.hi + hi.lo + lo.hi in fp32). On
+  the card the chain runs in two stages, both ``wgmma`` fed by TMA:
+  :func:`chain_head` writes h2 = relu(L2(relu(L1(x)))) (B, n, 128) to
+  device memory (persistent blocks over 64-point tiles, h1 in registers, h2
+  stored by TMA), and :func:`chain_tail` runs L3, its affine and the pool;
 * ``default``: every operand of every product (x, h1, h2 and each W_i) is
   rounded to bf16 (nearest even), products accumulate in fp32, the affines,
   relus and pools stay fp32. That class has one kernel, :func:`chain_fused`:
@@ -48,6 +49,37 @@ KERNEL_C1 = 64
 KERNEL_C2 = 128
 KERNEL_CIN_MAX = 64
 PREC_ENV = "P2S_EVAL_CHAIN_PREC"
+
+# csrc/chain_head.cu's launch plan: persistent blocks, one per SM, walk
+# 64-point tiles of the flattened (B n) axis; a block's tiles alternate
+# between its two consumer warpgroups (workers)
+HEAD_TILE = 64
+HEAD_STAGES = 4
+HEAD_WORKERS_PER_BLOCK = 2
+
+
+def head_smem_bytes() -> int:
+    """Shared memory of a chain_head.cu block, by its plan (the kernel
+    refuses a launch whose plan differs): W1^T and W2^T as tf32 hi and lo
+    (fp32 each), the 4-stage ring of 64 x Cin_max x tiles, a 64 x 128 h2
+    staging tile per worker, the packed affines, 8 mbarriers, and 1,024
+    bytes to align the swizzled tiles."""
+    w = 2 * (KERNEL_C1 * KERNEL_CIN_MAX + KERNEL_C2 * KERNEL_C1) * 4
+    ring = HEAD_STAGES * HEAD_TILE * KERNEL_CIN_MAX * 4
+    staging = HEAD_WORKERS_PER_BLOCK * HEAD_TILE * KERNEL_C2 * 4
+    affines = 2 * (KERNEL_C1 + KERNEL_C2) * 4
+    bars = 2 * HEAD_STAGES * 8
+    return w + ring + staging + affines + bars + 1024
+
+
+def head_launch_plan(points: int, sms: int) -> dict:
+    """Grid of :func:`chain_head` over ``points`` flattened points on a card
+    of ``sms`` SMs: tiles (64 points each, the last one ragged), blocks (one
+    per SM, at most one per tile) and smem_bytes."""
+    tiles = -(-points // HEAD_TILE)
+    return {"tiles": tiles, "blocks": min(sms, tiles),
+            "smem_bytes": head_smem_bytes()}
+
 
 # csrc/chain_fused.cu's launch plan: 64-point tiles (one warpgroup's wgmma
 # rows), slices of 512 columns of W3 resident per block, two consumer
@@ -183,8 +215,11 @@ def chain_head(x: torch.Tensor, layers) -> torch.Tensor:
     pointwise.
 
     x: (B, n, Cin) float32; layers: two (W, a, c) triples. Returns
-    (B, n, C2) float32. On CUDA the kernel takes Cin <= 64 and widths
-    64 -> 128.
+    (B, n, C2) float32. On CUDA the kernel (``csrc/chain_head.cu``) takes
+    Cin <= 64 and widths 64 -> 128: both layers on 3xTF32 ``wgmma``, x by
+    TMA (or, for Cin not a multiple of 4 such as the point STN's 3, by plain
+    loads), h1 in registers, h2 stored by TMA; its grid is
+    :func:`head_launch_plan`'s.
     """
     _check(x, layers, 2)
     if not _on_card(x, "chain_head"):
@@ -199,12 +234,14 @@ def chain_head(x: torch.Tensor, layers) -> torch.Tensor:
     h2 = torch.empty((b, n, KERNEL_C2), device=x.device,
                      dtype=torch.float32)
     dev = x.device.index
+    plan = head_launch_plan(b * n, sm_count(dev))
     with trace.span("kernel.chain"):
         rc = _head_library().p2s_chain_head(
             dev, x.data_ptr(), b * n, cin,
             w1.data_ptr(), a1.data_ptr(), c1.data_ptr(), KERNEL_C1,
             w2.data_ptr(), a2.data_ptr(), c2.data_ptr(), KERNEL_C2,
-            h2.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
+            h2.data_ptr(), plan["blocks"], plan["smem_bytes"],
+            torch._C._cuda_getCurrentRawStream(dev))
     check_launch("chain_head", rc)
     chain_head.launches += 1
     return h2
@@ -329,7 +366,7 @@ chain_pool.launches_fused_bf16 = 0
 
 _HEAD_ENTRY_POINTS = (
     ("p2s_chain_head", (CI, VP, ctypes.c_longlong, CI, VP, VP, VP, CI, VP,
-                        VP, VP, CI, VP, VP)),
+                        VP, VP, CI, VP, CI, CI, VP)),
 )
 _TAIL_ENTRY_POINTS = (
     ("p2s_chain_pool", (CI, VP, CI, CI, CI, VP, VP, VP, CI, CI, CI, VP,

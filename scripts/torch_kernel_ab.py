@@ -5,15 +5,15 @@ compare two checkouts on the same card.
     python scripts/torch_kernel_ab.py --root . --out new.pt --compare old.pt
 
 Imports ``points2surf_tpu_torch`` from ``--root`` (its kernels build there),
-runs ``chain_pool`` (max pool) at the query forward's five call sites at
-batch 4096, ``mlp_maxpool`` at four encoder-tail shapes and
-``pooled_tail`` at the train step's three conv3-tail shapes at batch 1000
-on seeded inputs, ``chain_pool_bf16`` and ``pooled_tail_bf16`` the same in
-the bf16-operand mode (``chain_pool_bf16`` runs ``chain_fused`` in a
-checkout that has it, the split pair in an older one; ``--kernels`` picks
-some of the five; a checkout older than the bf16 mode has only the other
-three), prints each call's
-mean device time (CUDA events) and saves the outputs. With ``--compare``
+runs ``chain_pool`` (max pool) and ``chain_head`` (its layers 1-2) at the
+query forward's five call sites at batch 4096, ``mlp_maxpool`` at four
+encoder-tail shapes and ``pooled_tail`` at the train step's three
+conv3-tail shapes at batch 1000 on seeded inputs, ``chain_pool_bf16`` and
+``pooled_tail_bf16`` the same in the bf16-operand mode (``chain_pool_bf16``
+runs ``chain_fused`` in a checkout that has it, the split pair in an older
+one; ``--kernels`` picks some of the six; a checkout older than the bf16
+mode has only the other four), prints each call's mean device time (CUDA
+events) and saves the outputs. With ``--compare``
 it also prints, per case, whether the outputs are bit-identical to the
 other file's and their max abs difference. Run the two checkouts in turns
 (old, new, new, old) in one call on one card.
@@ -49,6 +49,18 @@ def _events_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _random_layers(torch, gen, dev, cin, widths):
+    """(W, a, c) triples of a chain from ``cin`` through ``widths``."""
+    layers, ci = [], cin
+    for co in widths:
+        w = torch.randn((ci, co), generator=gen, device=dev) / ci ** 0.5
+        a = torch.rand((co,), generator=gen, device=dev) * 2.0 - 0.5
+        c = torch.randn((co,), generator=gen, device=dev) * 0.1
+        layers.append((w, a, c))
+        ci = co
+    return layers
+
+
 def _chain_pool(torch, dev, root, outs, bf16=False):
     from points2surf_tpu_torch.ops.kernels.chain_pool import chain_pool
 
@@ -58,13 +70,7 @@ def _chain_pool(torch, dev, root, outs, bf16=False):
     chains_ms = 0.0
     for cin, n, count in CHAIN_SITES:
         x = torch.randn((BATCH, n, cin), generator=gen, device=dev)
-        layers, ci = [], cin
-        for co in (64, 128, NET):
-            w = torch.randn((ci, co), generator=gen, device=dev) / ci ** 0.5
-            a = torch.rand((co,), generator=gen, device=dev) * 2.0 - 0.5
-            c = torch.randn((co,), generator=gen, device=dev) * 0.1
-            layers.append((w, a, c))
-            ci = co
+        layers = _random_layers(torch, gen, dev, cin, (64, 128, NET))
         key = f"{name} {BATCH}x{n}x{cin}"
         outs[key] = chain_pool(x, layers, **kw).cpu()
         ms = _events_ms(torch, lambda: chain_pool(x, layers, **kw), 5)
@@ -73,6 +79,25 @@ def _chain_pool(torch, dev, root, outs, bf16=False):
         del x
     print(f"{root}: {name}: five chains of one batch-{BATCH} forward "
           f"{chains_ms:.4f} ms")
+
+
+def _chain_head(torch, dev, root, outs):
+    from points2surf_tpu_torch.ops.kernels.chain_pool import chain_head
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    heads_ms = 0.0
+    for cin, n, count in CHAIN_SITES:
+        x = torch.randn((BATCH, n, cin), generator=gen, device=dev)
+        layers = _random_layers(torch, gen, dev, cin, (64, 128))
+        key = f"chain_head {BATCH}x{n}x{cin}"
+        # every 64th row of h2 (the whole of it is 5.4 GB over the sites)
+        outs[key] = chain_head(x, layers)[::64].cpu()
+        ms = _events_ms(torch, lambda: chain_head(x, layers), 10)
+        heads_ms += count * ms
+        print(f"{root}: {key} {ms:.4f} ms")
+        del x
+    print(f"{root}: chain_head: five heads of one batch-{BATCH} forward "
+          f"{heads_ms:.4f} ms")
 
 
 def _mlp_maxpool(torch, dev, root, outs):
@@ -115,7 +140,8 @@ def _pooled_tail(torch, dev, root, outs, bf16=False):
           f"train step {tails_ms:.4f} ms")
 
 
-KERNELS = {"chain_pool": _chain_pool, "mlp_maxpool": _mlp_maxpool,
+KERNELS = {"chain_pool": _chain_pool, "chain_head": _chain_head,
+           "mlp_maxpool": _mlp_maxpool,
            "pooled_tail": _pooled_tail,
            "chain_pool_bf16": functools.partial(_chain_pool, bf16=True),
            "pooled_tail_bf16": functools.partial(_pooled_tail, bf16=True)}

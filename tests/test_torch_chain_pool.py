@@ -3,11 +3,11 @@
 On the CPU the wrappers take their plain PyTorch versions, which are held
 here against the JAX Pallas kernel (interpret mode, fp32 operands) and its
 literal oracle: the whole chain, and its two stages (layers 1-2, then layer
-3 and the pool) composed. The CUDA kernels (``csrc/chain_head.cu``,
-``csrc/chain_pool.cu``) are held against their plain versions on the card
-by the ``cuda``-marked tests, at the model's call-site shapes and at inputs
-aimed at a pooled tensor-core kernel's pitfalls; ``chip_smoke.py`` runs the
-same check at the query path's batch.
+3 and the pool) composed, and the head's launch plan. The CUDA kernels
+(``csrc/chain_head.cu``, ``csrc/chain_pool.cu``) are held against their
+plain versions on the card by the ``cuda``-marked tests, at the model's
+call-site shapes and at inputs aimed at a pooled tensor-core kernel's
+pitfalls; ``chip_smoke.py`` runs the same check at the query path's batch.
 """
 
 import numpy as np
@@ -22,7 +22,11 @@ from points2surf_tpu_torch.ops.kernels.chain_pool import (
     chain_tail,
     chain_tail_reference,
     fold_conv_bn,
+    head_launch_plan,
+    head_smem_bytes,
 )
+
+H100_SMS = 132
 
 
 def _layers(rng, cin, widths=(64, 128, 256), scale_low=0.5):
@@ -147,6 +151,41 @@ def test_chain_stage_wrapper_checks(rng):
                                                  relu_last=True))
 
 
+def test_head_smem_bytes():
+    smem = head_smem_bytes()
+    assert smem == 232000  # csrc/chain_head.cu SMEM_BYTES
+    assert smem <= 232448  # a block's limit on sm_90
+    assert 2 * smem > 233472  # an SM's 228 KB: one block per SM
+
+
+def _worker_tiles(plan, block, worker):
+    """csrc/chain_head.cu's walk: block ``block`` takes tiles block, block +
+    blocks, ...; its two consumer warpgroups (workers) take them in turn."""
+    step = plan["blocks"]
+    return np.arange(block + worker * step, plan["tiles"], 2 * step)
+
+
+# lengths of the flattened (B n) axis: one point, a ragged single tile, one
+# whole tile, one point past it, and the largest call site (B 2048, n 1200)
+@pytest.mark.parametrize("points", [1, 63, 64, 65, 2048 * 1200])
+def test_head_launch_plan_covers_every_tile_once(points):
+    plan = head_launch_plan(points, H100_SMS)
+    tiles = plan["tiles"]
+    assert (tiles - 1) * 64 < points <= tiles * 64
+    assert plan["blocks"] == min(H100_SMS, tiles)
+    assert plan["smem_bytes"] == head_smem_bytes()
+    seen = np.zeros(tiles, dtype=np.int64)
+    per_block = []
+    for block in range(plan["blocks"]):
+        got = [_worker_tiles(plan, block, w) for w in range(2)]
+        for ts in got:
+            np.add.at(seen, ts, 1)
+        per_block.append(sum(ts.size for ts in got))
+    assert (seen == 1).all()
+    # every block takes its share: the counts differ by at most one
+    assert max(per_block) - min(per_block) <= 1
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -154,8 +193,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the chain call sites of the bench model's forward: (Cin, n points)
-CALL_SITES = [(3, 1300), (64, 1000), (64, 300)]
+# the chain call sites of the bench models' forwards: (Cin, n points);
+# p2s_large_kNN adds the last two
+CALL_SITES = [(3, 1300), (64, 1000), (64, 300), (3, 1000), (64, 1200)]
 
 
 def _card_inputs(device, b, n, cin, kind="random"):
@@ -192,15 +232,37 @@ def test_chain_pool_kernel_matches_plain(cuda_device, b, n, cin, sym_op):
     _assert_close(got, chain_pool_reference(x, tl, sym_op=sym_op))
 
 
+# (b, n, cin): the call sites and ragged n at B 8 and 1; then a flattened
+# length that is not a multiple of the 64-point tile (231); one shorter
+# than a tile; one where every persistent block walks many tiles (38,400
+# tiles); Cin a multiple of 4 below 64 (x by TMA, one box of 32 columns,
+# the rest zero) and one that is not (plain loads, Cin padded to eight k8
+# steps)
+HEAD_CASES = [(b, n, cin) for cin, n in CALL_SITES + [(64, 129), (3, 77)]
+              for b in (8, 1)] + [
+    (3, 77, 64), (1, 37, 64), (1, 37, 3), (2048, 1200, 64), (3, 77, 16),
+    (3, 77, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,n", CALL_SITES + [(64, 129), (3, 77)])
-@pytest.mark.parametrize("b", [8, 1])
+@pytest.mark.parametrize("b,n,cin", HEAD_CASES)
 def test_chain_head_kernel_matches_plain(cuda_device, b, n, cin):
     x, tl = _card_inputs(cuda_device, b, n, cin)
     before = chain_head.launches
     got = chain_head(x, tl[:2])
     torch.cuda.synchronize()
     assert chain_head.launches == before + 1
+    _assert_close(got, chain_head_reference(x, tl[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,n", [(3, 1300), (64, 1000)])
+def test_chain_head_kernel_is_deterministic(cuda_device, cin, n):
+    x, tl = _card_inputs(cuda_device, 64, n, cin)
+    got = chain_head(x, tl[:2])
+    again = chain_head(x, tl[:2])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     _assert_close(got, chain_head_reference(x, tl[:2]))
 
 
