@@ -17,7 +17,10 @@ that the result equals the full-cloud selection:
   uniform priorities over the in-ball candidates, certified by
   ``max_q |q - centroid| + r <= R_M`` (then every in-ball point is a
   candidate). M grows with the expected in-ball count
-  (:func:`ball_tile_candidates`). The radius is ``r`` itself.
+  (:func:`ball_tile_candidates`). The radius is ``r`` itself. Eval
+  batches key each priority by (batch row, point id)
+  (:func:`ball_priorities`), so a certified tile, the dense path and any
+  device select the same set.
 
 If any tile fails, the whole batch is selected again against the full cloud.
 Training batches (spread random patches) go straight to the full-cloud
@@ -35,13 +38,15 @@ log-uniform per candidate, or the uniform mode's ids) are made by
 batch adds one uniform rotation per row (:class:`TrainDraws`,
 :func:`draw_batch`). Ball mode's priorities are a :class:`BallDraws` on the
 same object, made block by block while the selection runs (a (B, N) block at
-batch 4096 on a 65,536-row cloud would be 1 GiB). A caller can so inject the
-same numbers on two devices or frameworks.
+batch 4096 on a 65,536-row cloud would be 1 GiB): in eval batches hashed
+from one key per batch, in training drawn from the generator. A caller can
+so inject the same numbers on two devices or frameworks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -72,16 +77,57 @@ class PatchConfig:
         return self.patch_radius <= 0.0
 
 
+_M32 = 0xFFFFFFFF
+# murmur3's finalizer multipliers less 2**32: h * (c - 2**32) has the low 32
+# bits of h * c, and for h < 2**32 it stays inside int64
+_FMIX_MUL = (0x85EBCA6B - 2 ** 32, 0xC2B2AE35 - 2 ** 32)
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer of int64 values in [0, 2**32), in place."""
+    h.bitwise_xor_(h >> 16)
+    h.mul_(_FMIX_MUL[0]).bitwise_and_(_M32)
+    h.bitwise_xor_(h >> 13)
+    h.mul_(_FMIX_MUL[1]).bitwise_and_(_M32)
+    return h.bitwise_xor_(h >> 16)
+
+
+def ball_priorities(key: torch.Tensor, rows: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """Eval-mode ball priorities in [0, 1): float32, of the broadcast shape
+    of ``rows`` (batch rows) and ``ids`` (cloud point ids), both int64.
+
+    With ``fmix32`` murmur3's 32-bit finalizer on unsigned 32-bit words
+    (``h ^= h >> 16; h *= 0x85EBCA6B; h ^= h >> 13; h *= 0xC2B2AE35;
+    h ^= h >> 16``, products modulo 2**32) and ``^`` exclusive or, the
+    priority of point ``i`` for row ``j`` is::
+
+        s = fmix32((key mod 2**32) ^ j)
+        priority = (fmix32(s ^ i) >> 8) / 2**24
+
+    Integer arithmetic only (int64 tensors, masked to 32 bits), so every
+    device gives the same bits. Within a row the 32-bit hashes differ
+    (``fmix32`` is a bijection); the 24-bit priorities may tie."""
+    s = _fmix32((key & _M32) ^ rows)
+    return (_fmix32(s ^ ids) >> 8).to(torch.float32) * 2.0 ** -24
+
+
 @dataclasses.dataclass(frozen=True)
 class BallDraws:
     """Uniform priorities in [0, 1) of ball-mode selection, made when the
-    selection asks for them: ``source(kind, index, shape)`` returns the
-    (T, tile, M) blocks of the Morton-ordered tiles (``kind`` "tiles", index
-    0) or the (rows, N) block of the dense chunk that starts at query row
-    ``index`` (``kind`` "rows"). A generator's source draws in call order;
-    a test's source serves injected numbers."""
+    selection asks for them, in one of two forms.
 
-    source: Callable[[str, int, tuple], torch.Tensor]
+    Keyed (``key``, a 0-d int64 tensor on the points' device; eval
+    batches): :func:`ball_priorities` of (the row's index in the batch, the
+    point's id), so the tiles and the dense path select alike. Block (``source``; training and injected numbers):
+    ``source(kind, index, shape)`` returns the (T, tile, M) blocks of the
+    Morton-ordered tiles (``kind`` "tiles", index 0) or the (rows, N) block
+    of the dense chunk that starts at query row ``index`` (``kind``
+    "rows"). A generator's source draws in call order; a test's source
+    serves injected numbers."""
+
+    source: Callable[[str, int, tuple], torch.Tensor] | None = None
+    key: torch.Tensor | None = None
 
     @staticmethod
     def from_generator(generator: torch.Generator) -> "BallDraws":
@@ -90,6 +136,10 @@ class BallDraws:
                               device=generator.device)
         return BallDraws(source)
 
+    @staticmethod
+    def keyed(key: torch.Tensor) -> "BallDraws":
+        return BallDraws(key=key)
+
     def block(self, kind: str, index: int, shape: tuple) -> torch.Tensor:
         u = self.source(kind, index, tuple(shape))
         if tuple(u.shape) != tuple(shape):
@@ -97,7 +147,32 @@ class BallDraws:
                              f"expected {tuple(shape)}")
         return u
 
+    def _hashed(self, rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        trace.count("extract.priorities",
+                    math.prod(torch.broadcast_shapes(rows.shape, ids.shape)))
+        with trace.span("extract.priorities"):
+            return ball_priorities(self.key, rows, ids)
+
+    def tiles(self, order: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+        """The (T, tile, M) priorities of the tiles: ``order`` (T, tile)
+        each tile slot's row in the batch, ``cand`` (T, M) each tile's
+        candidate ids."""
+        if self.key is None:
+            return self.block("tiles", 0, (*order.shape, cand.shape[1]))
+        return self._hashed(order[..., None], cand[:, None, :])
+
+    def dense(self, first: int, rows: int, n: int, device) -> torch.Tensor:
+        """The (rows, n) priorities of the dense chunk of batch rows
+        ``first:first + rows`` over every point."""
+        if self.key is None:
+            return self.block("rows", first, (rows, n))
+        return self._hashed(
+            torch.arange(first, first + rows, device=device)[:, None],
+            torch.arange(n, device=device)[None, :])
+
     def to(self, device) -> "BallDraws":
+        if self.key is not None:
+            return dataclasses.replace(self, key=self.key.to(device))
         src = self.source
         return BallDraws(lambda kind, index, shape: src(
             kind, index, shape).to(device))
@@ -264,13 +339,19 @@ def draw_batch(generator: torch.Generator, b: int, n: int, cfg: PatchConfig,
     """A batch's draws as :func:`extract_patches` makes them from
     ``generator``: the sub-sample's (from a generator seeded 42 each time
     with ``cfg.fixed_subsample``), with ``train`` the rotations, and in ball
-    mode the selection's priorities, which ``generator`` makes later, while
-    the selection runs."""
+    mode the selection's priorities: keyed by one key drawn from
+    ``generator`` on its device, or with ``train`` made by ``generator``
+    later, while the selection runs."""
     sub_gen = generator
     if cfg.fixed_subsample:
         sub_gen = torch.Generator(device=generator.device).manual_seed(42)
     sub = draw_subsample(sub_gen, b, n, cfg, small_cloud, n_valid)
-    ball = None if cfg.knn_mode else BallDraws.from_generator(generator)
+    ball = None
+    if not cfg.knn_mode and train:
+        ball = BallDraws.from_generator(generator)
+    elif not cfg.knn_mode:
+        ball = BallDraws.keyed(torch.randint(
+            0, 2 ** 32, (), generator=generator, device=generator.device))
     if not train:
         return dataclasses.replace(sub, ball=ball)
     rot = geometry.random_rotation(generator, (b,), generator.device)
@@ -311,7 +392,7 @@ def _tile_select(points, queries, n_valid, k, tile, m, radius=0.0,
         with trace.blocking(points.device):  # a copy of a host scalar
             r = torch.tensor(radius, dtype=torch.float32,
                              device=points.device)
-        u = ball.block("tiles", 0, (b // tile, tile, m))
+        u = ball.tiles(order.reshape(b // tile, tile), cand)
         v, i = torch.topk(torch.where(cand_invalid | (d2 > r * r), NEG_INF,
                                       u), k, dim=2)
         # every point within r of a query lies within max|q - c| + r of c
@@ -342,7 +423,7 @@ def _dense_select(points, queries, n_valid, k, cfg,
         if ball is None:
             scores = torch.where(invalid, NEG_INF, -d2)
         else:
-            u = ball.block("rows", s, (q.shape[0], n))
+            u = ball.dense(s, q.shape[0], n, points.device)
             scores = torch.where(invalid | (d2 > r * r), NEG_INF, u)
         v, i = torch.topk(scores, k, dim=1)
         ids.append(i)
